@@ -1,0 +1,101 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and builds into its own
+shared library under ``build/repro_torch/`` at the root of the checkout, at
+first use. The library's file name carries a hash of the source and the
+flags, so an edited source is rebuilt and a built one is reused. Nothing is
+built when a module is imported: the CPU tests import every module.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \\
+         -shared -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
+
+``--fmad=false`` keeps every product and sum rounding on its own, as the
+plain PyTorch versions do; fast math is never on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": nvcc wall time (0.0 when reused), "ptxas": its report}
+BUILD_LOG: dict[str, dict] = {}
+
+
+def nvcc() -> str:
+    """The nvcc binary: ``$CUDA_HOME/bin/nvcc``, then PATH, then
+    ``/usr/local/cuda/bin/nvcc``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> tuple[Path, subprocess.Popen | None, Path | None]:
+    out = library_path(name)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, proc, tmp
+
+
+def build_all(names) -> dict[str, Path]:
+    """Build every named source, one nvcc each, all started together.
+    Raises with nvcc's output when any build fails."""
+    with _LOCK:
+        t0 = time.monotonic()
+        started = {n: _start(n) for n in names}
+        paths = {}
+        for name, (out, proc, tmp) in started.items():
+            if proc is None:
+                BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "(reused)"})
+                paths[name] = out
+                continue
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{stdout}{stderr}")
+            os.replace(tmp, out)
+            BUILD_LOG[name] = {"seconds": time.monotonic() - t0, "ptxas": stderr + stdout}
+            paths[name] = out
+        return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all([name])[name]
+        with _LOCK:
+            lib = _LIBS.setdefault(name, ctypes.CDLL(str(path)))
+    return lib

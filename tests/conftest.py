@@ -16,3 +16,9 @@ def mesh11():
 @pytest.fixture()
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without one"
+    )
