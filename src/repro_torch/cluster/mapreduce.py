@@ -38,7 +38,9 @@ def map_shard(
     use_kernel: bool = False,
     tuning: TuningConfig | None = None,
 ) -> topk.TopKState:
-    """The map task: fold one shard into a stacked ``[n_models, n_q, k]`` state."""
+    """The map task: fold one shard into a stacked ``[n_models, n_q, k]``
+    state. ``shard_docs`` is ``(tokens, lengths)`` for a lexical grid or a
+    vector matrix ``[n, dim]`` for a dense one."""
     return scan.search_local_multi(
         queries,
         shard_docs,

@@ -1,8 +1,9 @@
 """Carry the JAX package's state across: its numpy arrays as the port's tensors.
 
-The reference keeps collection statistics, top-k states and epilogue specs
-as arrays; ``np.asarray`` of them gives numpy arrays, and these functions
-turn those into the port's tensors on a given device, dtypes unchanged.
+The reference keeps collection statistics, top-k states, epilogue specs and
+dense vectors as arrays; ``np.asarray`` of them gives numpy arrays, and
+these functions turn those into the port's tensors on a given device,
+dtypes unchanged.
 (Checkpoints need no conversion: both packages write the same on-disk
 layout, see `repro_torch.checkpoint`.)
 """
@@ -40,3 +41,19 @@ def epilogues_from_numpy(modes, weights, ab, device="cpu"):
         for m in modes
     )
     return modes, _t(weights, device), _t(ab, device)
+
+
+def vectors_from_numpy(vecs, device="cpu") -> torch.Tensor:
+    """Dense vectors ``[n, dim]``, float32 or bfloat16, -> the port's.
+
+    JAX's bfloat16 reaches numpy as ``ml_dtypes.bfloat16``, which torch does
+    not take; its 16-bit patterns are carried across and viewed as
+    ``torch.bfloat16``, so every value arrives bit for bit.
+    """
+    arr = np.asarray(vecs)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.tensor(np.ascontiguousarray(arr).view(np.int16), device=device)
+        return bits.view(torch.bfloat16)
+    if arr.dtype != np.float32:
+        raise TypeError(f"dense vectors must be float32 or bfloat16, got {arr.dtype}")
+    return _t(arr, device)

@@ -2,19 +2,25 @@
 
 One pass over a corpus shard scores every query against every document and
 keeps a running top-k per query. :func:`search_local_multi` folds a whole
-*grid* of lexical scorers in that one pass: the term-frequency reduction is
-computed once per chunk and shared by every model.
+*grid* of scorers: for a lexical grid in one pass, the term-frequency
+reduction computed once per chunk and shared by every model; for a dense
+grid one pass per scorer.
 
 The device picks the path. On CUDA tensors the scan launches the CUDA
-lexical-scan kernel (`repro_torch.kernels.ops.lexical_scan_topk`); on CPU
-tensors it runs that kernel's plain PyTorch version, which folds chunk by
-chunk exactly as the reference's host fold does. ``use_kernel`` is accepted
-so the reference's signatures carry over and changes nothing here: the
-reference's host fold and its interpret-mode kernel both map to the plain
-version on the CPU.
+kernels (`repro_torch.kernels.ops.lexical_scan_topk` for lexical scorers,
+`ops.score_topk` for dense ones); on CPU tensors it runs their plain
+PyTorch versions, which fold chunk by chunk as the reference's host fold
+does. ``use_kernel`` is accepted so the reference's signatures carry over
+and changes nothing here.
 
-Dense scans (``search_local`` with a dense scorer), the mesh scan and the
-dense host oracle wait for the dense slice.
+A dense scorer is the dot product of its ``row_map``-ed rows
+(`scoring.Scorer`): ``dense_cosine`` normalises queries and documents as
+`scoring.dense_cosine` does, then takes the dot product. That is the
+reference's host fold (``use_kernel=False``) on every device; the
+reference's own kernel path drops the row map and returns dot products for
+``dense_cosine``. :func:`search_dense_host` is the unblocked test oracle.
+
+The mesh scan (``search_sharded``) waits for the mesh slice.
 """
 
 from __future__ import annotations
@@ -44,6 +50,19 @@ def _offset_ids(ids: torch.Tensor, doc_id_offset) -> torch.Tensor:
     return torch.where(ids >= 0, ids + int(doc_id_offset), ids)
 
 
+def _dense_scan(queries, docs, scorer: Scorer, *, k: int, chunk_size: int,
+                cfg: TuningConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """One dense scorer over a shard -> ``(scores, local ids) [n_q, k]``."""
+    from repro_torch.kernels import ops
+
+    if scorer.row_map is not None:
+        queries, docs = scorer.row_map(queries), scorer.row_map(docs)
+    return ops.score_topk(
+        queries.contiguous(), docs.contiguous(), k=k,
+        block_d=cfg.dense_block(chunk_size, docs.shape[0]),
+    )
+
+
 def search_local(
     queries: Any,
     docs: Any,
@@ -56,10 +75,13 @@ def search_local(
     use_kernel: bool = False,
     tuning: TuningConfig | None = None,
 ) -> topk.TopKState:
-    """Scan a local corpus shard with one lexical scorer; top-k (global doc
-    ids) per query, shapes ``[n_q, k]``. ``use_kernel`` changes nothing."""
-    if scorer.kind != "lexical":
-        raise NotImplementedError("dense scans wait for the dense slice of the port")
+    """Scan a local corpus shard with one scorer; top-k (global doc ids) per
+    query, shapes ``[n_q, k]``.
+
+    ``docs`` is ``(tokens [n, L], lens [n])`` for lexical scorers or a vector
+    matrix ``[n, dim]`` for dense scorers; ``n`` must be a multiple of
+    ``chunk_size``. ``use_kernel`` changes nothing.
+    """
     state = search_local_multi(
         queries, docs, (scorer,), k=k, chunk_size=chunk_size, stats=stats,
         doc_id_offset=doc_id_offset, use_kernel=use_kernel, tuning=tuning,
@@ -80,10 +102,12 @@ def search_local_multi(
     use_kernel: bool = False,
     tuning: TuningConfig | None = None,
 ) -> topk.TopKState:
-    """Scan a corpus shard once, scoring a whole *grid* of lexical models.
+    """Scan a corpus shard, scoring a whole *grid* of models of one kind.
 
     Returns a stacked :class:`topk.TopKState` with shapes ``[n_models, n_q,
-    k]``; row ``m`` equals ``search_local(..., scorer=scorers[m])``.
+    k]``; row ``m`` equals ``search_local(..., scorer=scorers[m])``. A
+    lexical grid scans in one kernel pass; a dense grid launches the dense
+    kernel once per scorer.
     ``init_state`` resumes from a checkpointed state: this pass's k-bounded
     result merges into it (associativity of the combiner makes the
     segmented fold equal to the unsegmented one). ``use_kernel`` changes
@@ -97,8 +121,7 @@ def search_local_multi(
     kinds = {s.kind for s in scorers}
     if len(kinds) != 1:
         raise ValueError(f"multi-scorer scan needs a single kind, got {sorted(kinds)}")
-    if kinds.pop() != "lexical":
-        raise NotImplementedError("dense scans wait for the dense slice of the port")
+    kind = kinds.pop()
     _check_chunking(docs, chunk_size)
     n_q = pipeline.leaves(queries)[0].shape[0]
     if init_state is not None:
@@ -110,16 +133,28 @@ def search_local_multi(
         if init_state.k != k:
             raise ValueError(f"init_state has k={init_state.k}, requested k={k}")
 
-    from repro_torch.kernels import ops
-
     cfg = tune_config.resolve(tuning)
-    d_tokens, d_len = docs
-    modes, weights, ab = scoring.lexical_epilogues(scorers, queries, stats)
-    scores, ids = ops.lexical_scan_topk(
-        queries, weights, ab, d_tokens, d_len, modes=modes, k=k,
-        block_d=cfg.lex_block(chunk_size, d_tokens.shape[0]), tile_d=cfg.lex_tile_d,
-    )
+    if kind == "dense":
+        results = [_dense_scan(queries, docs, s, k=k, chunk_size=chunk_size, cfg=cfg)
+                   for s in scorers]
+        scores = torch.stack([r[0] for r in results])
+        ids = torch.stack([r[1] for r in results])
+    else:
+        from repro_torch.kernels import ops
+
+        d_tokens, d_len = docs
+        modes, weights, ab = scoring.lexical_epilogues(scorers, queries, stats)
+        scores, ids = ops.lexical_scan_topk(
+            queries, weights, ab, d_tokens, d_len, modes=modes, k=k,
+            block_d=cfg.lex_block(chunk_size, d_tokens.shape[0]), tile_d=cfg.lex_tile_d,
+        )
     state = topk.TopKState(scores=scores, ids=_offset_ids(ids, doc_id_offset))
     if init_state is not None:
         state = topk.merge(init_state, state)
     return state
+
+
+def search_dense_host(q_vecs: torch.Tensor, d_vecs: torch.Tensor, k: int) -> topk.TopKState:
+    """Unblocked oracle (materializes the full score matrix) for tests."""
+    scores = q_vecs.to(torch.float32) @ d_vecs.to(torch.float32).T
+    return topk.topk_dense(scores, k)

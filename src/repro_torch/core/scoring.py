@@ -234,11 +234,22 @@ def tfidf(q_tokens, d_tokens, d_len, stats, *, tf: torch.Tensor | None = None):
     return apply_epilogue(mode, ep, tf, d_len)
 
 
-def _dense_pending(*_args, **_kwargs):
-    raise NotImplementedError(
-        "dense scorers wait for the dense slice of the port "
-        "(score_topk kernel, DenseSession)"
-    )
+def dense_dot(q_vecs: torch.Tensor, d_vecs: torch.Tensor) -> torch.Tensor:
+    """Dense inner-product block score, accumulated in float32 (the
+    reference's ``dot_general`` with ``preferred_element_type=float32``)."""
+    return q_vecs.to(torch.float32) @ d_vecs.to(torch.float32).T
+
+
+def normalize_rows(vecs: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Each row over its L2 norm plus ``eps``, in float32: the row map of
+    :func:`dense_cosine`. Rows are mapped independently, so mapping a whole
+    corpus once gives the bits that mapping it chunk by chunk gives."""
+    v = vecs.to(torch.float32)
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
+
+
+def dense_cosine(q_vecs: torch.Tensor, d_vecs: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return dense_dot(normalize_rows(q_vecs, eps), normalize_rows(d_vecs, eps))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +259,10 @@ class Scorer:
     ``params`` records keyword overrides bound onto ``fn`` (a grid point in
     an experiment); ``base`` names the unparameterized scorer it came from.
     ``epilogue`` is the lexical decomposition contract
-    ``(q_tokens, stats) -> (EpilogueMode, LexicalEpilogue)``.
+    ``(q_tokens, stats) -> (EpilogueMode, LexicalEpilogue)``. ``row_map`` is
+    the dense one: every dense scorer is the dot product of query and
+    document rows after ``row_map`` (None: the rows as they are), which is
+    what lets the dense kernel (`kernels.ops.score_topk`) score them all.
     """
 
     name: str
@@ -257,6 +271,7 @@ class Scorer:
     base: str | None = None
     params: tuple[tuple[str, object], ...] = ()
     epilogue: Callable | None = None
+    row_map: Callable | None = None
 
     def score_block(self, queries, doc_block, stats: CollectionStats | None = None,
                     *, tf: torch.Tensor | None = None):
@@ -272,8 +287,8 @@ SCORERS: dict[str, Scorer] = {
     "ql_lm": Scorer("ql_lm", "lexical", hiemstra_lm, epilogue=ql_lm_epilogue),
     "bm25": Scorer("bm25", "lexical", bm25, epilogue=bm25_epilogue),
     "tfidf": Scorer("tfidf", "lexical", tfidf, epilogue=tfidf_epilogue),
-    "dense_dot": Scorer("dense_dot", "dense", _dense_pending),
-    "dense_cosine": Scorer("dense_cosine", "dense", _dense_pending),
+    "dense_dot": Scorer("dense_dot", "dense", dense_dot),
+    "dense_cosine": Scorer("dense_cosine", "dense", dense_cosine, row_map=normalize_rows),
 }
 
 
@@ -292,15 +307,17 @@ def make_variant(base: str, name: str | None = None, **params) -> Scorer:
     """
     b = get_scorer(base)
     fn = functools.partial(b.fn, **params) if params else b.fn
-    ep = b.epilogue
-    if ep is not None and params:
-        ep = functools.partial(ep, **params)  # fn and epilogue share param names
+    ep, rows = b.epilogue, b.row_map
+    if params:  # fn, epilogue and row map share param names
+        ep = functools.partial(ep, **params) if ep is not None else None
+        rows = functools.partial(rows, **params) if rows is not None else None
     if name is None:
         name = base if not params else (
             base + "(" + ",".join(f"{k}={v}" for k, v in sorted(params.items())) + ")"
         )
     return Scorer(
-        name, b.kind, fn, base=base, params=tuple(sorted(params.items())), epilogue=ep
+        name, b.kind, fn, base=base, params=tuple(sorted(params.items())), epilogue=ep,
+        row_map=rows,
     )
 
 

@@ -15,8 +15,8 @@ seconds instead of minutes:
   densest documents are selected by a partition instead of a full sort,
   unless a tie makes the order depend on the sort (then the full sort runs).
 
-Links, dense vectors and the LM, graph and recsys generators wait for the
-slices that use them.
+:func:`make_dense_corpus` is the reference's numpy code as it is. Links and
+the LM, graph and recsys generators wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -99,6 +99,13 @@ def make_queries(
         picks = rng.integers(0, dlen, size=qlen)
         q[i, :qlen] = corpus.tokens[doc, picks]
     return q
+
+
+def make_dense_corpus(*, n_docs: int, dim: int, seed: int = 4) -> np.ndarray:
+    """Unit-norm float32 document vectors ``[n_docs, dim]`` (seeded)."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n_docs, dim)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
 
 def _top_by_density(density: np.ndarray, per_query: int) -> np.ndarray:

@@ -2,15 +2,17 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and builds into its own
 shared library under ``build/repro_torch/`` at the root of the checkout, at
-first use. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a built one is reused. Nothing is
-built when a module is imported: the CPU tests import every module.
+first use. The library's file name carries a hash of the source, of the
+shared ``csrc/*.cuh`` headers and of the flags, so an edited source or
+header is rebuilt and a built one is reused. Nothing is built when a module
+is imported: the CPU tests import every module.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \\
          -shared -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 ``--fmad=false`` keeps every product and sum rounding on its own, as the
-plain PyTorch versions do; fast math is never on.
+plain PyTorch versions do (a kernel that wants a fused multiply-add says so
+with ``__fmaf_rn``); fast math is never on.
 """
 
 from __future__ import annotations
@@ -54,8 +56,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the name hashes the source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and the flags,
+    so an edited shared header rebuilds every kernel."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -35,6 +35,8 @@
 //      top k. Each CTA writes its sorted top k per model.
 //   2. `lexical_merge_partials`, grid (n_q, n_models): folds the n_splits
 //      partial lists with the same (score desc, id asc) bitonic merge.
+// The (score, id) order, the bitonic sort and the bitonic merge live in
+// topk_merge.cuh, shared with the dense kernel (score_topk.cu).
 // Both merges depend only on the values, so the result is the exact
 // lexicographic top k whatever n_splits, block_d or tile_docs are.
 //
@@ -52,60 +54,12 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "topk_merge.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// (as, ai) goes before (bs, bi): score descending, id ascending on ties.
-// Float compares treat -0.0 and +0.0 as equal, as the reference does.
-__device__ __forceinline__ bool before(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai <= bi);
-}
-
-// Bitonic sort of n (a power of two) entries into before-order.
-__device__ void bitonic_sort(float* s, int* id, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool forward = (i & size) == 0;
-        const float si = s[i], sj = s[j];
-        const int ii = id[i], ij = id[j];
-        if (forward != before(si, ii, sj, ij)) {
-          s[i] = sj; s[j] = si; id[i] = ij; id[j] = ii;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// st <- top m of (st ++ b), both sorted in before-order, m a power of two:
-// the first stage of the bitonic merge of st ++ reverse(b) keeps the better
-// of each pair in the lower half, the half-cleaners then sort that half.
-__device__ void merge_into(float* st_s, int* st_i, const float* b_s,
-                           const int* b_i, int m) {
-  for (int t = threadIdx.x; t < m; t += blockDim.x) {
-    const float bs = b_s[m - 1 - t];
-    const int bi = b_i[m - 1 - t];
-    if (!before(st_s[t], st_i[t], bs, bi)) { st_s[t] = bs; st_i[t] = bi; }
-  }
-  __syncthreads();
-  for (int stride = m >> 1; stride > 0; stride >>= 1) {
-    for (int t = threadIdx.x; t < m / 2; t += blockDim.x) {
-      const int i = 2 * t - (t & (stride - 1));
-      const int j = i + stride;
-      const float si = st_s[i], sj = st_s[j];
-      const int ii = st_i[i], ij = st_i[j];
-      if (!before(si, ii, sj, ij)) {
-        st_s[i] = sj; st_s[j] = si; st_i[i] = ij; st_i[j] = ii;
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // tf of each query term in one staged row, by one warp: lane j holds tokens
 // j, j + 32, ... (T of them) in registers; positions past L_d read as PAD,
@@ -227,8 +181,8 @@ lexical_scan_partial(const int* __restrict__ q_safe,     // [n_q, l_q]
       ci[t] = -1;
     }
     __syncthreads();
-    bitonic_sort(cs, ci, width);
-    merge_into(st_s + m * k_pad, st_i + m * k_pad, cs, ci, k_pad);
+    topk::bitonic_sort(cs, ci, width);
+    topk::merge_into(st_s + m * k_pad, st_i + m * k_pad, cs, ci, k_pad);
     if (tid == 0) {
       cnt[m] = 0;
       thr_s[m] = st_s[m * k_pad + k - 1];
@@ -345,7 +299,7 @@ lexical_merge_partials(const float* __restrict__ part_s,  // [G, n_q, n_splits, 
       b_i[t] = t < k ? pi[sp * k + t] : -1;
     }
     __syncthreads();
-    merge_into(st_s, st_i, b_s, b_i, k_pad);
+    topk::merge_into(st_s, st_i, b_s, b_i, k_pad);
   }
   __syncthreads();
   for (int t = threadIdx.x; t < k; t += blockDim.x) {

@@ -19,9 +19,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import lexical_scan as _lexical
+from repro_torch.kernels import score_topk as _dense
 from repro_torch.tune import config as tune_config
 
-LAUNCHES: dict[str, int] = {"lexical_scan_topk": 0}
+LAUNCHES: dict[str, int] = {"lexical_scan_topk": 0, "score_topk": 0}
 
 
 def reset_launches() -> None:
@@ -44,6 +45,38 @@ def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev
+
+
+def score_topk(q, d, *, k: int, block_d: int | None = None, merge: str = "bitonic"):
+    """Streaming dense score + top-k (MIREX map+combine) -> ``(scores, ids)
+    [n_q, k]``, ids local to ``d``, ``(-inf, -1)`` in empty slots.
+
+    ``q [n_q, dim]`` and ``d [n_d, dim]`` share a dtype, float32 or
+    bfloat16; scores accumulate in float32. ``block_d=None`` takes the
+    active tuning's ``dense_block_d`` (1024 when untuned); ``n_d`` must be a
+    multiple of it. ``merge`` names one of the reference's two combiners,
+    ``"bitonic"`` (the k-bounded merge) and ``"concat"`` (the full re-sort),
+    which give the same result: both names are accepted and compute that
+    one result.
+    """
+    if merge not in ("bitonic", "concat"):
+        raise ValueError(f"unknown merge {merge!r}; expected 'bitonic' or 'concat'")
+    if block_d is None:
+        block_d = tune_config.active().config.dense_block_d or 1024
+    for arg, t in (("q", q), ("d", d)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"score_topk: {arg} must be a tensor, got {type(t).__name__}")
+        if not t.is_contiguous():
+            raise ValueError(f"score_topk: {arg} must be contiguous")
+    if q.device != d.device:
+        raise ValueError(f"score_topk: d on {d.device}, expected {q.device}")
+    if q.device.type == "cpu":
+        return _dense.score_topk_ref(q, d, k=k, block_d=block_d)
+    if q.device.type != "cuda":
+        raise ValueError(f"score_topk: no kernel for device {q.device}")
+    out = _dense.score_topk_cuda(q, d, k=k, block_d=block_d)
+    LAUNCHES["score_topk"] += 1
+    return out
 
 
 def lexical_scan_topk(

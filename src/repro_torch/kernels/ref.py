@@ -5,5 +5,6 @@ benchmarks (as `repro.kernels.ref` gathers the reference's oracles).
 """
 
 from repro_torch.kernels.lexical_scan import lexical_scan_topk_ref
+from repro_torch.kernels.score_topk import score_topk_ref
 
-__all__ = ["lexical_scan_topk_ref"]
+__all__ = ["lexical_scan_topk_ref", "score_topk_ref"]

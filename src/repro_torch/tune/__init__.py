@@ -14,6 +14,7 @@ from repro_torch.tune.config import (  # noqa: F401
     TuningConfig,
     active,
     load,
+    provenance,
     resolve,
     save,
     use,

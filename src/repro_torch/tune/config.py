@@ -1,9 +1,12 @@
 """The frozen config the port's performance knobs live in.
 
-The port's copy of `repro.tune.config`, cut down to the knobs this slice
-reads: the fold's ``chunk_size``, the checkpoints kept on disk, the
-lexical kernel's ``lex_block_d``/``lex_tile_d`` and ``token_pack`` (only
-``"none"`` runs; the runner refuses the others until the packing slice).
+The port's copy of `repro.tune.config`, cut down to the knobs the ported
+slices read: the fold's ``chunk_size``, the checkpoints kept on disk, the
+lexical kernel's ``lex_block_d``/``lex_tile_d``, ``token_pack`` (only
+``"none"`` runs; the runner and the lexical session refuse the others until
+the packing slice), the dense kernel's ``dense_block_d`` and the serve
+microbatch triggers (``serve_max_batch``, ``serve_max_delay_s``,
+``serve_min_bucket``, ``serve_max_bucket``).
 Defaults reproduce the hand-picked values, so ``TuningConfig()`` is the
 identity config, and the contract is the reference's:
 
@@ -14,7 +17,7 @@ the tf reduction accumulates in int32, so run files under any legal config
 are byte-identical to the default-config run.
 
 The reference's other knobs (prefetch, workers, writer reuse, retry
-backoff, the dense and flash kernels' blocks, serving) wait for the slices
+backoff, the flash kernels' blocks) wait for the slices
 that read them. :meth:`TuningConfig.from_dict` (and so ``--tuning-config``)
 accepts such a knob only at the reference's default value, which changes
 nothing, and raises ``NotImplementedError`` for any other value.
@@ -47,11 +50,6 @@ _LATER_KNOBS = {
     "writer_reuse": (False, "executor"),
     "backoff_base": (0.1, "executor"),
     "backoff_cap": (5.0, "executor"),
-    "dense_block_d": (None, "serving"),
-    "serve_max_batch": (64, "serving"),
-    "serve_max_delay_s": (5e-3, "serving"),
-    "serve_min_bucket": (8, "serving"),
-    "serve_max_bucket": (128, "serving"),
     "flash_block_q": (128, "models"),
     "flash_block_k": (128, "models"),
     "decode_block_s": (512, "models"),
@@ -64,30 +62,48 @@ class TuningConfig:
     hand-picked values, so ``TuningConfig()`` is the identity config.
 
     ``None`` on the geometry knobs means "follow the caller": ``chunk_size``
-    defers to the experiment/job's declared chunking and ``lex_block_d``
-    follows ``chunk_size`` on the scan paths (the kernel's own default, 512,
-    on direct calls).
+    defers to the experiment/job's declared chunking and ``lex_block_d`` /
+    ``dense_block_d`` follow ``chunk_size`` on the scan paths (the kernels'
+    own defaults, 512 / 1024, on direct calls). ``serve_max_bucket=None``
+    means an uncapped bucket ladder (its default is a cap, 128; capping only
+    regroups dispatches, so results stay byte-identical).
     """
 
     chunk_size: int | None = None  # rows per fold chunk; None = caller's
     keep_checkpoints: int = 2  # committed segments kept on disk
     lex_block_d: int | None = None  # doc tile; None = chunk_size / 512
     lex_tile_d: int = 16  # L_d sub-tile of the tf reduction
+    dense_block_d: int | None = None  # doc tile; None = chunk_size / 1024
+    serve_max_batch: int = 64
+    serve_max_delay_s: float = 5e-3
+    serve_min_bucket: int = 8
+    # bucket-ladder cap: blocks never pad past it, and larger takes split
+    # into <= cap dispatches; None = uncapped
+    serve_max_bucket: int | None = 128
     token_pack: str = "none"  # packed corpus segments (packing slice)
 
     def __post_init__(self):
-        for name in ("chunk_size", "lex_block_d"):
+        for name in ("chunk_size", "lex_block_d", "dense_block_d", "serve_max_bucket"):
             v = getattr(self, name)
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"{name} must be a positive int or None, got {v!r}")
-        for name in ("keep_checkpoints", "lex_tile_d"):
+        for name in ("keep_checkpoints", "lex_tile_d", "serve_max_batch", "serve_min_bucket"):
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if not isinstance(self.serve_max_delay_s, (int, float)) or self.serve_max_delay_s < 0:
+            raise ValueError(
+                f"serve_max_delay_s must be a non-negative number, got {self.serve_max_delay_s!r}"
+            )
         if self.token_pack not in _TOKEN_PACK_MODES:
             raise ValueError(
                 f"token_pack must be one of {_TOKEN_PACK_MODES}, "
                 f"got {self.token_pack!r}"
+            )
+        if self.serve_max_bucket is not None and self.serve_max_bucket < self.serve_min_bucket:
+            raise ValueError(
+                f"serve_max_bucket {self.serve_max_bucket} below "
+                f"serve_min_bucket {self.serve_min_bucket}"
             )
 
     def replace(self, **kw: Any) -> "TuningConfig":
@@ -143,6 +159,13 @@ class TuningConfig:
             block = chunk_size
         return block
 
+    def dense_block(self, chunk_size: int, n_rows: int | None = None) -> int:
+        """Dense-kernel doc tile; same rules as :meth:`lex_block`."""
+        block = self.dense_block_d if self.dense_block_d is not None else chunk_size
+        if n_rows is not None and n_rows % block:
+            block = chunk_size
+        return block
+
 
 DEFAULT = TuningConfig()
 
@@ -153,6 +176,9 @@ class ActiveTuning:
 
     config: TuningConfig = DEFAULT
     source: str = "default"
+
+    def provenance(self) -> dict:
+        return {"config_hash": self.config.config_hash(), "source": self.source}
 
 
 _LOCK = threading.Lock()
@@ -181,6 +207,11 @@ def use(config: TuningConfig | None, *, source: str = "explicit") -> Iterator[Ac
         yield active()
     finally:
         _install(prev)
+
+
+def provenance() -> dict:
+    """The active config's provenance block (benchmarks stamp this)."""
+    return _active.provenance()
 
 
 def resolve(tuning: TuningConfig | None) -> TuningConfig:

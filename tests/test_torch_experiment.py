@@ -199,12 +199,16 @@ def test_tuning_knobs_of_later_slices_are_refused(tmp_path):
 
     path = ref_tune.save(ref_tune.TuningConfig(lex_tile_d=32), str(tmp_path / "ref.json"))
     assert tune.load(path) == tune.TuningConfig(lex_tile_d=32)  # later knobs at default
-    for knob, value in (("prefetch_depth", 3), ("serve_max_batch", 8), ("flash_block_q", 64)):
+    for knob, value in (("prefetch_depth", 3), ("decode_block_s", 256), ("flash_block_q", 64)):
         path = ref_tune.save(ref_tune.TuningConfig(**{knob: value}), str(tmp_path / "k.json"))
         with pytest.raises(NotImplementedError, match=f"{knob}={value}.*slice of the port"):
             tune.load(path)
     with pytest.raises(ValueError, match="unknown tuning knobs"):
         tune.TuningConfig.from_dict({"meteor": 1})
+    # the serving slice's knobs are read now: they load at any legal value
+    path = ref_tune.save(ref_tune.TuningConfig(serve_max_batch=8, dense_block_d=512),
+                         str(tmp_path / "serve.json"))
+    assert tune.load(path) == tune.TuningConfig(serve_max_batch=8, dense_block_d=512)
 
 
 def test_checkpoint_layout_is_the_references(tmp_path):

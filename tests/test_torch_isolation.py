@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,6 +74,16 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(tmp_path):
         runner.prepare_collection(smoke)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import DenseSession, LexicalSession
+
+    tokens, lens = np.zeros((64, 4), np.int32), np.full(64, 4, np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LexicalSession(tokens, lens, "ql_lm", k=2, chunk_size=64, vocab=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DenseSession(np.zeros((64, 4), np.float32), k=2, chunk_size=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--mode", "search", "--bench-out", str(tmp_path / "b.json")])
     assert not os.listdir(tmp_path)  # nothing ran
     assert resolve_device("cpu") == torch.device("cpu")
 

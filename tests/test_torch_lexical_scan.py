@@ -5,7 +5,7 @@ version; the reference's `ops.lexical_scan_topk` runs its Pallas kernel in
 interpret mode, as the reference's own tests run it. Same numpy inputs, made
 from a seed, through both: scores within 1e-5 and ids equal except at float
 near-ties (`_torch_parity`). The CUDA kernel itself is held against the
-plain version on the card by the ``cuda``-marked test (and by
+plain version on the card by ``tests/test_torch_cuda.py`` (and by
 ``chip_smoke.py``).
 """
 
@@ -195,29 +195,3 @@ def test_launch_geometry():
         scoring.EpilogueMode("bm25"),
         scoring.EpilogueMode("tfidf", length_norm="rsqrt"),
     )) == [4, 1, 10]
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version_bitwise():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda")
-    _, port_grid = _grids()
-    for seed, (n_d, l_d, k, block_d, tile_d) in enumerate(
-        [(300, 23, 37, 100, 16), (64, 16, 100, 64, 16), (2048, 64, 64, 256, 64),
-         (512, 300, 30, 256, 32), (8192, 24, 3000, 4096, 16)]
-    ):
-        q, toks, lens = _inputs(seed, n_d, l_d, 7, 5, 30, n_d // 8)
-        d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
-        from repro_torch.core import anchors
-
-        stats = anchors.collection_stats(d, dl, 30, chunk_size=n_d)
-        modes, w, ab = scoring.lexical_epilogues(port_grid, qt, stats)
-        before = ops.LAUNCHES["lexical_scan_topk"]
-        ks, ki = ops.lexical_scan_topk(qt, w, ab, d, dl, modes=modes, k=k,
-                                       block_d=block_d, tile_d=tile_d)
-        ps, pi = lexical_scan.lexical_scan_topk_ref(qt, w, ab, d, dl, modes=modes, k=k,
-                                                    block_d=block_d, tile_d=tile_d)
-        assert ops.LAUNCHES["lexical_scan_topk"] == before + 1
-        assert torch.equal(ki, pi)
-        assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))

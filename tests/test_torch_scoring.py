@@ -127,8 +127,13 @@ def test_scorer_registry_and_variants():
     assert (v.name, v.base, v.params) == (r.name, r.base, r.params)
     with pytest.raises(KeyError):
         scoring.get_scorer("nope")
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        scoring.get_scorer("dense_dot").fn(None, None)
+    for name in ("dense_dot", "dense_cosine"):
+        assert scoring.get_scorer(name).kind == "dense"
+    assert scoring.get_scorer("dense_dot").row_map is None
+    c = scoring.make_variant("dense_cosine", eps=1e-3)
+    assert c.name == ref_scoring.make_variant("dense_cosine", eps=1e-3).name
+    x = torch.tensor([[3.0, 4.0]])
+    assert torch.equal(c.row_map(x), x / (5.0 + 1e-3))
 
 
 def test_lexical_epilogues_stack():
