@@ -16,10 +16,19 @@ code (nothing is caught and passed over):
                   lexical scan must agree to the bit; the dense score+top-k
                   within 1e-5 with ids equal except at float near-ties
                   (the CPU tests' rule, ``tests/_torch_parity.py``), and to
-                  the bit on integer-valued inputs. Then each kernel's time
+                  the bit on integer-valued inputs; the flash attention and
+                  decode kernels, on the reference's sweeps, head_dim 80,
+                  128 and 256 and two block geometries, within 3e-4 / 3e-5
+                  in float32 and 3e-2 in bfloat16, and in bfloat16 also
+                  within a limit scaled to each output row
+                  (``FLASH_ROW_TOL``), which at gemma2-2b's shapes a
+                  control (the band one key block narrower) must fail.
+                  Then each kernel's time
                   by CUDA events beside its bound and the plain version's
-                  time, and for the dense kernel the time of one PyTorch
-                  call that computes the same function (``library_ms``).
+                  time, and, where one PyTorch call computes the same
+                  function, that call's time (``library_ms``; for the flash
+                  kernels `scaled_dot_product_attention`, which has no soft
+                  cap, beside the kernel run with ``cap=None``).
 4. ``experiment`` the ``bm25-grid`` experiment at the ``mirex`` width
                   (2^23 docs x 128 tokens, vocab 65,536, 64 queries, k 1000,
                   5 models, 32 segments) through `runner.run_experiment` on
@@ -34,6 +43,28 @@ code (nothing is caught and passed over):
                   corpus (4 waves of 256 queries); every dispatch must launch
                   its kernel once, sampled answers must match the plain
                   oracles; then a batch-size sweep at 8, 64 and 128.
+7. ``lm``         LM serving of gemma2-2b at its full width and depth (26
+                  layers, bfloat16, seeded random weights, 6.4 GB) through
+                  `make_prefill_step` and `make_serve_step`: 4 prompts of
+                  8,192 tokens from `make_lm_batch` (twice the sliding
+                  window; one untimed prefill first, then the timed one),
+                  the cache copied into 8,704 slots, one untimed and 128
+                  timed greedy
+                  decode steps; every layer's attention must launch the
+                  flash kernel (26 prefill launches, 26 x 128 decode
+                  launches) and every logit must be finite. Then the same
+                  entry points at full width and 2 layers on 2 prompts of
+                  1,024 tokens, on the card and on the CPU (plain
+                  versions) from the same weights: last-position logits
+                  within the bfloat16 tolerance ``LM_TOL``, greedy tokens
+                  of 8 decode steps equal except at a named logit
+                  near-tie, and every attention output within the
+                  row-scaled limit times ``LM_ATTN_SLACK``; a control run
+                  on the card with the window one key block short of the
+                  prompt must fail that limit. `torch.profiler` over one
+                  prefill and 8 decode steps gives the device busy and
+                  idle time, the top kernels and each flash kernel's
+                  device time.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, a
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
@@ -54,7 +85,7 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
-PHASES = ("env", "build", "kernels", "experiment", "resume", "serve")
+PHASES = ("env", "build", "kernels", "experiment", "resume", "serve", "lm")
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet) and the INT32
 # compare/add rate of the CUDA cores, 64 results per clock per SM for compute
@@ -69,6 +100,36 @@ FP32_OPS_PER_S = 128 * 2 * 132 * 1.98e9
 # ``mirex`` config's dense_dim (src/repro/configs/archs/mirex.py)
 DENSE_DOCS, DENSE_QUERIES = 1 << 24, 4096
 DEEPER = 8  # reference rankings this much deeper show near-ties across the cut
+# bfloat16 dense tensor-core peak (NVIDIA data sheet, H100 SXM at 700 W)
+BF16_OPS_PER_S = 989e12
+# the kernels' tolerances against their plain versions (the reference's own,
+# tests/test_kernels.py): (rtol, atol) by dtype name
+FLASH_TOL = {"float32": (3e-4, 3e-5), "bfloat16": (3e-2, 3e-2)}
+# bfloat16 outputs are also held to each output row's own scale: a softmax
+# average of n standard-normal V rows has a spread of about sqrt(e/n), 0.018
+# at n = 8192, so FLASH_TOL's atol would pass a kernel that dropped a key
+# block. Per element |got - want| <= rtol |want| + tau rms(want's row over
+# hd): rtol 2^-6 is two bfloat16 ulps of the value (the two sides round p
+# and the output at different points), tau 0.05 of the row's scale lies far
+# above p's rounding noise (2^-9 relative per term) and far below a key
+# block misplaced at the band's edge, a control the check must fail
+FLASH_ROW_TOL = (2.0 ** -6, 0.05)
+# card against CPU at full width, 2 layers, bfloat16: last-position logits
+# (O(1) with the seeded init) may differ by this much in absolute terms —
+# every product rounds to bfloat16 at other places on the two devices
+# (cuBLAS against oneDNN, the kernels against the plain versions), about
+# 2^-8 relative per rounding, compounded over two layers. The logits mix
+# attention with everything else, so the attention outputs themselves
+# (before wo) are held to FLASH_ROW_TOL's limit scaled by LM_ATTN_SLACK:
+# their inputs already differ by the card's and the CPU's roundings
+# upstream. A control run on the card with the window one key block short
+# must fail that check (PERF.md has both checks' sound and control readings)
+LM_TOL = 0.1
+LM_ATTN_SLACK = 4.0
+# phase lm: gemma2-2b serving 4 prompts of 8,192 tokens (twice the window)
+# into a cache of 8,704 slots (a multiple of decode_block_s 512), then 128
+# greedy steps; the card-vs-CPU check on 2 prompts of 1,024 tokens
+LM_BATCH, LM_PROMPT, LM_SLOTS, LM_DECODE, CHECK_PROMPT = 4, 8192, 8704, 128, 1024
 
 
 def emit(phase: str, **payload) -> None:
@@ -102,7 +163,7 @@ def phase_build(ctx) -> None:
     from repro_torch.kernels import _build
 
     t0 = time.monotonic()
-    paths = _build.build_all(["lexical_scan", "score_topk"])
+    paths = _build.build_all(["lexical_scan", "score_topk", "flash_attn", "flash_decode"])
     seconds = time.monotonic() - t0
     ptxas = {}
     for name in paths:
@@ -399,6 +460,215 @@ def _dense_kernels(ctx) -> None:
          fp32_ops=ops_count, bytes=n_bytes, nvidia_smi=ctx["smi"])
     del corpus  # 16 GiB: the experiment phase runs as it ran before this phase grew
     torch.cuda.empty_cache()
+    _flash_kernels(ctx)
+
+
+def _row_excess(got, want) -> float:
+    """The largest ratio of |got - want| to FLASH_ROW_TOL's limit (above 1
+    fails); rows run along the last axis (hd)."""
+    rtol, tau = FLASH_ROW_TOL
+    g, w = got.float(), want.float()
+    rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+    return float(((g - w).abs() / (rtol * w.abs() + tau * rms).clamp_min(1e-30)).max())
+
+
+def _flash_close(name, got, want, dtype) -> float:
+    import torch
+
+    rtol, atol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol, msg=name)
+    excess = _row_excess(got, want) if dtype == torch.bfloat16 else None
+    if excess is not None and excess > 1:
+        raise AssertionError(f"{name}: {excess} times the row-scaled limit {FLASH_ROW_TOL}")
+    return {"max_abs_err": float((got.float() - want.float()).abs().max()), "row_excess": excess}
+
+
+def _control_fails(name, wrong, want) -> float:
+    """A deliberately wrong plain result must fail the row-scaled check:
+    proof that the check sees a fault of that size at these shapes."""
+    excess = _row_excess(wrong, want)
+    if excess <= 1:
+        raise AssertionError(f"{name}: the control passes the row-scaled check ({excess})")
+    return excess
+
+
+def _window_pairs(s: int, window: int | None) -> int:
+    """(query, key) pairs a causal layer scores: j <= i and i - j < window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _flash_kernels(ctx) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn, flash_decode, ops
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    results = []
+    # the reference's sweep (tests/test_kernels.py:31-53) in both dtypes and two geometries
+    for s, h, kv, hd in ((128, 4, 4, 32), (256, 4, 2, 64), (256, 8, 1, 32)):
+        for window, cap in ((None, None), (64, None), (None, 30.0), (32, 50.0)):
+            for dtype in (f32, bf16):
+                for bq, bk in ((64, 64), (128, 128)):
+                    seed = len(results)
+                    q = _rows(seed, (2, s, h, hd), dtype)
+                    k, v = _rows(seed + 1000, (2, s, kv, hd), dtype), _rows(seed + 2000, (2, s, kv, hd), dtype)
+                    name = f"attn s{s} h{h} kv{kv} hd{hd} w{window} cap{cap} {dtype} {bq}/{bk}"
+                    got = ops.flash_attention(q, k, v, window=window, cap=cap, block_q=bq, block_k=bk)
+                    want = flash_attn.flash_attention_ref(q, k, v, window=window, cap=cap)
+                    results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    # the models' head dims: gemma2-2b 256, h2o-danube 80, gemma2-27b 128
+    for hd, h, kv in ((256, 8, 4), (80, 32, 8), (128, 32, 16)):
+        for causal, window, cap in ((True, 200, 50.0), (True, None, None), (False, 100, 50.0)):
+            for dtype in (f32, bf16):
+                bq, bk = (128, 128) if causal and window else (64, 64)
+                seed = len(results)
+                q = _rows(seed, (1, 512, h, hd), dtype)
+                k, v = _rows(seed + 1000, (1, 512, kv, hd), dtype), _rows(seed + 2000, (1, 512, kv, hd), dtype)
+                name = f"attn hd{hd} h{h} kv{kv} causal{causal} w{window} cap{cap} {dtype} {bq}/{bk}"
+                got = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap,
+                                          block_q=bq, block_k=bk)
+                want = flash_attn.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+                results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    # the reference's decode sweep (tests/test_kernels.py:56-67), both dtypes, two block sizes
+    for s, kv, g, t in ((512, 2, 2, 300), (1024, 4, 1, 1023), (512, 1, 8, 0)):
+        for window in (None, 128):
+            for dtype in (f32, bf16):
+                for bs in (128, 512):
+                    seed = len(results)
+                    q = _rows(seed, (2, kv * g, 32), dtype)
+                    kc, vc = _rows(seed + 1000, (2, s, kv, 32), dtype), _rows(seed + 2000, (2, s, kv, 32), dtype)
+                    name = f"decode s{s} kv{kv} g{g} t{t} w{window} {dtype} bs{bs}"
+                    got = ops.flash_decode(q, kc, vc, t, window=window, block_s=bs)
+                    want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window)
+                    results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    for hd, kv, g in ((256, 4, 2), (80, 8, 4), (128, 16, 2)):
+        for window, cap, t in ((None, 50.0, 1030), (512, 50.0, 1030), (300, None, 77)):
+            for dtype, bs in ((f32, 256), (bf16, 512)):
+                seed = len(results)
+                q = _rows(seed, (2, kv * g, hd), dtype)
+                kc, vc = _rows(seed + 1000, (2, 1100, kv, hd), dtype), _rows(seed + 2000, (2, 1100, kv, hd), dtype)
+                name = f"decode hd{hd} kv{kv} g{g} t{t} w{window} cap{cap} {dtype} bs{bs}"
+                got = ops.flash_decode(q, kc, vc, t, window=window, cap=cap, block_s=bs)
+                want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=cap)
+                results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    torch.cuda.synchronize()
+    emit("kernels.flash_edge", cases=len(results),
+         max_abs_err_attn_f32=max(r["max_abs_err"] for r in results if "attn" in r["case"] and "float32" in r["case"]),
+         max_abs_err_attn_bf16=max(r["max_abs_err"] for r in results if "attn" in r["case"] and "bfloat16" in r["case"]),
+         max_abs_err_decode_f32=max(r["max_abs_err"] for r in results if "decode" in r["case"] and "float32" in r["case"]),
+         max_abs_err_decode_bf16=max(r["max_abs_err"] for r in results if "decode" in r["case"] and "bfloat16" in r["case"]),
+         row_excess_bf16=max(r["row_excess"] for r in results if r["row_excess"] is not None),
+         row_tol=FLASH_ROW_TOL,
+         detail=results, nvidia_smi=ctx["smi"])
+
+    # time: gemma2-2b's prefill attention, B 4, S 8192, H 8, KV 4, hd 256, bf16, cap 50
+    b, s, h, kv, hd, cap = 4, 8192, 8, 4, 256, 50.0
+    q = _rows(50, (b, s, h, hd), bf16)
+    k, v = _rows(51, (b, s, kv, hd), bf16), _rows(52, (b, s, kv, hd), bf16)
+    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    timing = {}
+    for label, window in (("global", None), ("local", 4096)):
+        kern = lambda c=cap, w=window: flash_attn.flash_attention_cuda(
+            q, k, v, causal=True, window=w, cap=c, block_q=128, block_k=128)
+        got, want = kern(), flash_attn.flash_attention_ref(q, k, v, window=window, cap=cap)
+        close = _flash_close(f"attn gemma2-2b {label}", got, want, bf16)
+        # control: the band one 128-key block narrower (the rows it reaches lose up to 128 keys)
+        control = _control_fails(f"attn gemma2-2b {label}", flash_attn.flash_attention_ref(
+            q, k, v, window=(window or s) - 128, cap=cap), want)
+        del got, want
+        ms = cuda_ms(kern, reps=10, warmup=2)
+        ms_nocap = cuda_ms(lambda w=window: kern(None, w), reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda w=window: flash_attn.flash_attention_ref(q, k, v, window=w, cap=cap),
+                           reps=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's [B, heads, S, hd]
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        torch.testing.assert_close(lib().transpose(1, 2).float(), kern(None, window).float(),
+                                   rtol=3e-2, atol=3e-2, msg=f"sdpa {label}")
+        library_ms = cuda_ms(lib, reps=10, warmup=2)
+        flops = 4 * b * h * hd * _window_pairs(s, window)
+        bound_ms = 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+        bound_by = "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
+        timing[label] = {"ms": ms, "ms_cap_none": ms_nocap, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         **close, "control_row_excess": control, "ops": flops, "bytes": n_bytes}
+        emit("kernels.timing", kernel="flash_attention", layer=label,
+             shape=f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, cap {cap}, window {window}, "
+             "blocks 128/128", **timing[label], plain_note="plain version: not a yardstick",
+             library_note="scaled_dot_product_attention(enable_gqa=True), causal"
+             + (" with a boolean window mask" if window else "") + ": no soft cap, so it "
+             "stands beside ms_cap_none; timed as a yardstick, never used by the port",
+             nvidia_smi=ctx["smi"])
+    g = timing["global"]
+    ctx["kernels"]["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn.py:74",
+        "launches": None,  # from the lm phase's prefill
+        "max_abs_err": max(t["max_abs_err"] for t in timing.values()),
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+    }
+    del q, k, v
+
+    # time: gemma2-2b's decode, B 4, a cache of 8704 slots, t 8191
+    slots, t = 8704, 8191
+    q = _rows(53, (b, h, hd), bf16)
+    kc, vc = _rows(54, (b, slots, kv, hd), bf16), _rows(55, (b, slots, kv, hd), bf16)
+    timing = {}
+    for label, window in (("global", None), ("local", 4096)):
+        kern = lambda c=cap, w=window: flash_decode.flash_decode_cuda(
+            q, kc, vc, t, window=w, cap=c, block_s=512)
+        want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=cap)
+        close = _flash_close(f"decode gemma2-2b {label}", kern(), want, bf16)
+        # control: one of the 512-position blocks dropped at the band's far edge
+        control = _control_fails(f"decode gemma2-2b {label}", flash_decode.flash_decode_ref(
+            q, kc, vc, t, window=(window or t + 1) - 512, cap=cap), want)
+        ms = cuda_ms(kern, reps=100, warmup=5)
+        ms_nocap = cuda_ms(lambda w=window: kern(None, w), reps=100, warmup=5)
+        plain_ms = cuda_ms(lambda w=window: flash_decode.flash_decode_ref(q, kc, vc, t, window=w, cap=cap),
+                           reps=10, warmup=1)
+        lo, hi = flash_decode.allowed_range(t, window)
+        qt = q[:, :, None]  # [B, H, 1, hd]
+        kt, vt = kc[:, lo : hi + 1].transpose(1, 2), vc[:, lo : hi + 1].transpose(1, 2)
+        lib = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        torch.testing.assert_close(lib()[:, :, 0].float(), kern(None, window).float(),
+                                   rtol=3e-2, atol=3e-2, msg=f"sdpa decode {label}")
+        library_ms = cuda_ms(lib, reps=100, warmup=5)
+        n_pos = hi - lo + 1
+        dec_bytes = 2 * (2 * q.numel() + 2 * b * n_pos * kv * hd)
+        flops = 4 * b * h * hd * n_pos
+        bound_ms = 1e3 * max(flops / BF16_OPS_PER_S, dec_bytes / HBM_BYTES_PER_S)
+        bound_by = "operations" if flops / BF16_OPS_PER_S >= dec_bytes / HBM_BYTES_PER_S else "bytes"
+        timing[label] = {"ms": ms, "ms_cap_none": ms_nocap, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         **close, "control_row_excess": control, "ops": flops, "bytes": dec_bytes}
+        emit("kernels.timing", kernel="flash_decode", layer=label,
+             shape=f"B {b}, {slots} slots, t {t}, H {h}, KV {kv}, hd {hd}, bf16, cap {cap}, "
+             f"window {window}, block_s 512", **timing[label],
+             plain_note="plain version: not a yardstick",
+             library_note="scaled_dot_product_attention(enable_gqa=True) over the allowed "
+             "positions: no soft cap, so it stands beside ms_cap_none; timed as a yardstick, "
+             "never used by the port", nvidia_smi=ctx["smi"])
+    g = timing["global"]
+    ctx["kernels"]["flash_decode"] = {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:67",
+        "launches": None,  # from the lm phase's decode
+        "max_abs_err": max(t["max_abs_err"] for t in timing.values()),
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+    }
+    del q, kc, vc
+    torch.cuda.empty_cache()
 
 
 def _check_runs(report, n_docs: int, k: int) -> None:
@@ -629,6 +899,250 @@ def phase_serve(ctx) -> None:
          nvidia_smi=ctx["smi"])
 
 
+def _record_calls(fn, outs: list):
+    """``fn`` wrapped to keep a float32 CPU copy of every result."""
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        outs.append(out.float().cpu())
+        return out
+
+    return recorded
+
+
+def _lm_run(cfg, params, tokens, feed=None) -> dict:
+    """Prefill, then 8 greedy decode steps, through the entry points, with
+    every attention output (before wo) recorded: the decode steps take the
+    tokens ``feed`` when given, else their own argmax."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    dev = params["embed"].device
+    attn = []
+    real = ops.flash_attention, ops.flash_decode
+    ops.flash_attention, ops.flash_decode = (_record_calls(f, attn) for f in real)
+    try:
+        t0 = time.monotonic()
+        logits, cache = tfm.make_prefill_step(cfg)(params, tokens.to(dev))
+        prefill_s = time.monotonic() - t0
+        full = tfm.init_cache(cfg, 2, CHECK_PROMPT + 8, device=dev)
+        full["k"][:, :, :CHECK_PROMPT], full["v"][:, :, :CHECK_PROMPT] = cache["k"], cache["v"]
+        del cache
+        step = tfm.make_serve_step(cfg, batch=2)
+        out, fed = [logits.cpu()], []
+        for i in range(8):
+            fed.append(feed[i] if feed is not None else out[-1].argmax(dim=-1))
+            logits, full = step(params, full, fed[-1].to(dev), CHECK_PROMPT + i)
+            out.append(logits.cpu())
+    finally:
+        ops.flash_attention, ops.flash_decode = real
+    return {"logits": out, "fed": fed, "attn": attn, "prefill_s": prefill_s}
+
+
+def _on_card_and_cpu_agree(cfg_full, params) -> dict:
+    """Full width, 2 layers, bfloat16: the same entry points on the card and
+    on the CPU from the same weights, 2 prompts of 1,024 tokens, then 8
+    greedy decode steps (all fed the CPU's tokens). Logits and every
+    attention output are compared; then a control run on the card, its
+    window one 128-key block short of the prompt, must fail the attention
+    check."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    two = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "unembed": params["unembed"],
+           "layers": {n: w[:2] for n, w in params["layers"].items()}}
+    on_cpu = {"embed": two["embed"].cpu(), "final_norm": two["final_norm"].cpu(),
+              "unembed": two["unembed"].cpu(),
+              "layers": {n: w.cpu() for n, w in two["layers"].items()}}
+    tokens = torch.as_tensor(synthetic.make_lm_batch(batch=2, seq_len=CHECK_PROMPT,
+                                                     vocab=cfg.vocab, seed=1)["tokens"])
+    cpu = _lm_run(cfg, on_cpu, tokens)
+    before = dict(ops.LAUNCHES)
+    card = _lm_run(cfg, two, tokens, feed=cpu["fed"])
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    if launched["flash_attention"] != cfg.n_layers or launched["flash_decode"] != 8 * cfg.n_layers:
+        raise AssertionError(f"{launched} launches in a prefill and 8 decode steps of "
+                             f"{cfg.n_layers} layers")
+    ties, errs = [], []
+    for i, (got, want) in enumerate(zip(card["logits"], cpu["logits"])):
+        errs.append(float((got - want).abs().max()))
+        if not torch.isfinite(got).all() or errs[-1] > LM_TOL:
+            raise AssertionError(f"card vs CPU logits at step {i} differ by {errs[-1]} (> {LM_TOL})")
+        for row in range(2):
+            w, g = int(want[row].argmax()), int(got[row].argmax())
+            if w != g:
+                margin = float(want[row, w] - want[row, g])
+                if margin > LM_TOL:
+                    raise AssertionError(f"step {i} row {row}: card token {g}, CPU token "
+                                         f"{w}, CPU margin {margin} (> {LM_TOL})")
+                ties.append({"step": i, "row": row, "card": g, "cpu": w, "cpu_margin": margin})
+    # attention outputs: 2 prefill layers, then 2 layers for each decode step
+    attn = [_row_excess(g, w) / LM_ATTN_SLACK for g, w in zip(card["attn"], cpu["attn"])]
+    if max(attn) > 1:
+        raise AssertionError(f"card vs CPU attention outputs: {max(attn)} times the limit")
+    short = dataclasses.replace(cfg, sliding_window=CHECK_PROMPT - 128)
+    control = _lm_run(short, two, tokens, feed=cpu["fed"])
+    control_attn = [_row_excess(g, w) / LM_ATTN_SLACK for g, w in zip(control["attn"], cpu["attn"])]
+    if max(control_attn) <= 1:
+        raise AssertionError(f"the control (window {short.sliding_window}) passes the "
+                             f"attention check ({max(control_attn)})")
+    return {"layers": cfg.n_layers, "prompts": [2, CHECK_PROMPT], "decode_steps": 8, "tol": LM_TOL,
+            "prefill_max_abs_diff": errs[0], "decode_max_abs_diff": errs[1:],
+            "logit_scale": float(cpu["logits"][0].abs().max()),
+            "greedy_tokens_equal": not ties, "near_ties": ties,
+            "attn_limit": {"row_tol": FLASH_ROW_TOL, "slack": LM_ATTN_SLACK},
+            "attn_excess_prefill": attn[:2], "attn_excess_decode_max": max(attn[2:]),
+            "control_window": short.sliding_window,
+            "control_attn_excess_prefill": control_attn[:2],
+            "control_attn_excess_decode_max": max(control_attn[2:]),
+            "control_logits_max_abs_diff": max(float((g - w).abs().max()) for g, w in
+                                               zip(control["logits"], cpu["logits"])),
+            "cpu_prefill_s": cpu["prefill_s"]}
+
+
+def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
+    """Where the device time goes: `torch.profiler` over one prefill and
+    over 8 decode steps (after the timed runs; the decode steps write
+    positions past the timed ones). Per window: wall seconds (profiling
+    adds host time), the device's busy seconds (the sum of its activities'
+    device time: one stream, so they do not overlap), the idle share and
+    the top activities by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+
+    def window(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        # device activity only (kernels, copies); the host ops that launched
+        # them and CUPTI's "Command Buffer Full" waits carry the same time
+        rows = [(e.key, e.self_device_time_total * 1e-6, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and e.key != "Command Buffer Full"]
+        busy = sum(r[1] for r in rows)
+        rows.sort(key=lambda r: -r[1])
+        return {"wall_s": wall, "device_busy_s": busy,
+                "idle_share": 1.0 - busy / wall if busy else "not measured",
+                "flash_s": {name: sum(d for k, d, _ in rows if tag in k) for name, tag in
+                            (("flash_attention", "flash_attn"), ("flash_decode", "flash_decode"))},
+                "top": [{"kernel": k[:120], "s": d, "calls": c} for k, d, c in rows[:12]]}
+
+    out = {"prefill": window(lambda: tfm.make_prefill_step(cfg)(params, tokens))}
+
+    def decode():
+        nonlocal tok
+        for i in range(8):
+            logits, _ = step(params, cache, tok, t + i)
+            tok = torch.argmax(logits, dim=-1)
+
+    out["decode_8_steps"] = window(decode)
+    return out
+
+
+def phase_lm(ctx) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    ctx.pop("collection", None)  # the serve phase's corpora go first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gemma2-2b")
+    batch, prompt, slots, n_decode = LM_BATCH, LM_PROMPT, LM_SLOTS, LM_DECODE
+    t0 = time.monotonic()
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [params["embed"], params["final_norm"], params["unembed"],
+                        *params["layers"].values()])
+    tokens = torch.as_tensor(synthetic.make_lm_batch(batch=batch, seq_len=prompt,
+                                                     vocab=cfg.vocab, seed=0)["tokens"],
+                             device="cuda")
+    prefill = tfm.make_prefill_step(cfg)
+    # one untimed prefill first: kernel builds (when the build phase did not
+    # run), module loads and cuBLAS's first calls stay out of the timing
+    prefill(params, tokens)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    prefill_launches = dict(ops.LAUNCHES)
+    if prefill_launches["flash_attention"] != cfg.n_layers or prefill_launches["flash_decode"]:
+        raise AssertionError(f"prefill launched {prefill_launches} for {cfg.n_layers} layers")
+    finite = bool(torch.isfinite(logits).all())
+    full = tfm.init_cache(cfg, batch, slots, device="cuda")
+    full["k"][:, :, :prompt], full["v"][:, :, :prompt] = cache["k"], cache["v"]
+    del cache
+    torch.cuda.empty_cache()
+    step = tfm.make_serve_step(cfg, batch=batch)
+    tok = torch.argmax(logits, dim=-1)
+    step(params, full, tok, prompt)  # untimed: the timed first step rewrites position t
+    step_s, seq0 = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for t in range(prompt, prompt + n_decode):
+        t1 = time.monotonic()
+        logits, full = step(params, full, tok, t)
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        finite &= bool(torch.isfinite(logits).all())
+        seq0.append(int(tok[0]))
+    decode_launches = dict(ops.LAUNCHES)
+    if decode_launches["flash_decode"] != cfg.n_layers * n_decode or \
+            decode_launches["flash_attention"]:
+        raise AssertionError(f"decode launched {decode_launches} for {n_decode} steps of "
+                             f"{cfg.n_layers} layers")
+    if not finite:
+        raise AssertionError("non-finite logits in prefill or decode")
+    peak = torch.cuda.max_memory_allocated()
+    ctx["launches"]["flash_attention"] = prefill_launches["flash_attention"]
+    ctx["launches"]["flash_decode"] = decode_launches["flash_decode"]
+    steps = np.array(step_s)
+    # each flash kernel's device time from the profiler (one prefill, 8
+    # decode steps), over the timed runs' wall time
+    profile = _profile_lm(params, tokens, cfg, full, step, tok, prompt + n_decode)
+    attn_s = profile["prefill"]["flash_s"]["flash_attention"]
+    decode_step_s = profile["decode_8_steps"]["flash_s"]["flash_decode"] / 8
+    emit("lm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, vocab=cfg.vocab, dtype=cfg.dtype,
+         weight_bytes=weight_bytes, init_s=init_s, batch=batch, prompt=prompt,
+         cache_slots=slots, cache_bytes=sum(x.numel() * x.element_size() for x in full.values()),
+         prefill_s=prefill_s, prefill_tokens_per_s=batch * prompt / prefill_s,
+         prefill_launches=prefill_launches, flash_attention_device_s=attn_s,
+         flash_attention_share=attn_s / prefill_s,
+         decode_steps=n_decode, decode_launches=decode_launches,
+         decode_ms_p50=float(np.quantile(steps, 0.5)) * 1e3,
+         decode_ms_p99=float(np.quantile(steps, 0.99)) * 1e3,
+         decode_tokens_per_s=batch * n_decode / float(steps.sum()),
+         flash_decode_device_ms_per_step=decode_step_s * 1e3,
+         flash_decode_share=decode_step_s / float(steps.mean()),
+         seq0_tokens=seq0[:16], logits_finite=finite, max_memory_allocated=peak,
+         nvidia_smi=ctx["smi"])
+    emit("lm.profile", **profile, nvidia_smi=ctx["smi"])
+    del full
+    torch.cuda.empty_cache()
+    check = _on_card_and_cpu_agree(cfg, params)
+    emit("lm.card_vs_cpu", **check, nvidia_smi=ctx["smi"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -653,7 +1167,8 @@ def main(argv=None) -> int:
 
     ctx = {"kernels": {}, "launches": {}, "smi": gpu_name_and_power_limit()}
     table = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-             "experiment": phase_experiment, "resume": phase_resume, "serve": phase_serve}
+             "experiment": phase_experiment, "resume": phase_resume, "serve": phase_serve,
+             "lm": phase_lm}
     for p in PHASES:
         if p in only:
             table[p](ctx)

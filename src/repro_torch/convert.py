@@ -1,9 +1,9 @@
 """Carry the JAX package's state across: its numpy arrays as the port's tensors.
 
 The reference keeps collection statistics, top-k states, epilogue specs and
-dense vectors as arrays; ``np.asarray`` of them gives numpy arrays, and
-these functions turn those into the port's tensors on a given device,
-dtypes unchanged.
+dense vectors, LM parameters and KV caches as arrays; ``np.asarray`` of
+them gives numpy arrays, and these functions turn those into the port's
+tensors on a given device, dtypes unchanged.
 (Checkpoints need no conversion: both packages write the same on-disk
 layout, see `repro_torch.checkpoint`.)
 """
@@ -51,9 +51,34 @@ def vectors_from_numpy(vecs, device="cpu") -> torch.Tensor:
     ``torch.bfloat16``, so every value arrives bit for bit.
     """
     arr = np.asarray(vecs)
+    if arr.dtype.name != "bfloat16" and arr.dtype != np.float32:
+        raise TypeError(f"dense vectors must be float32 or bfloat16, got {arr.dtype}")
+    return _float_array(arr, device)
+
+
+def _float_array(arr, device) -> torch.Tensor:
+    """A float32 or bfloat16 array as a tensor, bit for bit."""
+    arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = torch.tensor(np.ascontiguousarray(arr).view(np.int16), device=device)
         return bits.view(torch.bfloat16)
-    if arr.dtype != np.float32:
-        raise TypeError(f"dense vectors must be float32 or bfloat16, got {arr.dtype}")
     return _t(arr, device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _float_array(tree, device)
+
+
+def params_from_numpy(params, device="cpu") -> dict:
+    """The reference's LM parameter pytree (`repro.models.transformer.
+    init_params`, leaves through ``np.asarray``) -> the port's dict of
+    tensors on ``device``, bfloat16 bit for bit."""
+    return _tree(params, device)
+
+
+def cache_from_numpy(cache, device="cpu") -> dict:
+    """The reference's KV cache ``{"k", "v"}`` of ``[L,B,S,KV,hd]`` arrays
+    -> the port's, on ``device``, bfloat16 bit for bit."""
+    return _tree(cache, device)

@@ -15,8 +15,9 @@ seconds instead of minutes:
   densest documents are selected by a partition instead of a full sort,
   unless a tie makes the order depend on the sort (then the full sort runs).
 
-:func:`make_dense_corpus` is the reference's numpy code as it is. Links and
-the LM, graph and recsys generators wait for the slices that use them.
+:func:`make_dense_corpus` and :func:`make_lm_batch` are the reference's
+numpy code as it is. Links and the graph and recsys generators wait for the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -181,3 +182,19 @@ def make_graded_qrels(
             band = rank * max_grade // max(len(top), 1)  # 0 = densest band
             qrels[qi, doc] = max_grade - band
     return qrels
+
+
+def make_lm_batch(
+    *, batch: int, seq_len: int, vocab: int, seed: int = 0, chunk: int = 0
+) -> dict[str, np.ndarray]:
+    """Deterministic LM batch keyed by (seed, chunk): Zipf-distributed
+    tokens ``[batch, seq_len]`` and their next-token labels, int32, byte
+    for byte the reference's."""
+    rng = np.random.default_rng((seed, chunk))
+    tokens = _zipf_tokens(rng, batch * (seq_len + 1), vocab, 1.2).reshape(
+        batch, seq_len + 1
+    )
+    return {
+        "tokens": tokens[:, :-1].astype(np.int32),
+        "labels": tokens[:, 1:].astype(np.int32),
+    }

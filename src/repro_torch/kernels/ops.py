@@ -18,11 +18,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import lexical_scan as _lexical
 from repro_torch.kernels import score_topk as _dense
 from repro_torch.tune import config as tune_config
 
-LAUNCHES: dict[str, int] = {"lexical_scan_topk": 0, "score_topk": 0}
+LAUNCHES: dict[str, int] = {
+    "lexical_scan_topk": 0, "score_topk": 0, "flash_attention": 0, "flash_decode": 0,
+}
 
 
 def reset_launches() -> None:
@@ -125,4 +129,79 @@ def lexical_scan_topk(
         modes=modes, k=k, block_d=block_d, tile_d=tile_d,
     )
     LAUNCHES["lexical_scan_topk"] += 1
+    return out
+
+
+def _same_dtype(name: str, tensors: dict) -> torch.device:
+    first = next(iter(tensors.values()))
+    dtypes = {arg: first.dtype for arg in tensors}
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {first.dtype} (float32 or bfloat16 expected)")
+    return _check_cuda(name, tensors, dtypes)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    cap: float | None = None, block_q: int | None = None,
+                    block_k: int | None = None):
+    """Blockwise attention (causal / sliding window / soft cap / native GQA).
+    ``q [B,S,H,hd]``, ``k``/``v [B,S,KV,hd]`` of one dtype, float32 or
+    bfloat16 -> ``[B,S,H,hd]``; query head ``h`` reads KV head
+    ``h // (H / KV)``.
+
+    ``block_q``/``block_k`` default to the active tuning's
+    ``flash_block_q``/``flash_block_k`` (128/128 when untuned); ``S`` must
+    be a multiple of both, as in the reference. On the card they are the
+    kernel's tile (`flash_attn.check_geometry` says what it takes).
+    """
+    if block_q is None or block_k is None:
+        cfg = tune_config.active().config
+        block_q = cfg.flash_block_q if block_q is None else block_q
+        block_k = cfg.flash_block_k if block_k is None else block_k
+    dev = _same_dtype("flash_attention", {"q": q, "k": k, "v": v})
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention: q [B,S,H,hd] and k, v [B,S,KV,hd] with KV "
+                         f"dividing H expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    s = q.shape[1]
+    if s % block_q or s % block_k:
+        raise ValueError(f"sequence {s} not divisible by block_q {block_q} / block_k {block_k}")
+    if dev.type == "cpu":
+        return _flash.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    out = _flash.flash_attention_cuda(q, k, v, causal=causal, window=window, cap=cap,
+                                      block_q=block_q, block_k=block_k)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
+                 cap: float | None = None, block_s: int | None = None):
+    """Split-KV single-token decode. ``q [B,H,hd]``, caches ``[B,S,KV,hd]``
+    of one dtype -> ``[B,H,hd]``, attending to positions ``<= t``.
+
+    ``t`` is a host ``int`` (a tensor is read once with ``int()``, a sync
+    for a CUDA tensor); ``0 <= t < S``. ``block_s=None`` takes the active
+    tuning's ``decode_block_s`` (512 when untuned). ``S`` need not be a
+    multiple of ``block_s``: positions past ``t`` are never read.
+    """
+    if block_s is None:
+        block_s = tune_config.active().config.decode_block_s
+    dev = _same_dtype("flash_decode", {"q": q, "k_cache": k_cache, "v_cache": v_cache})
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or q.shape[0] != k_cache.shape[0] or q.shape[2] != k_cache.shape[3] \
+            or q.shape[1] % k_cache.shape[2]:
+        raise ValueError(f"flash_decode: q [B,H,hd] and caches [B,S,KV,hd] with KV dividing "
+                         f"H expected, got {tuple(q.shape)}, {tuple(k_cache.shape)}")
+    t = int(t)
+    if not 0 <= t < k_cache.shape[1]:
+        raise ValueError(f"flash_decode: position t={t} outside a cache of {k_cache.shape[1]}")
+    if dev.type == "cpu":
+        return _decode.flash_decode_ref(q, k_cache, v_cache, t, window=window, cap=cap)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_decode: no kernel for device {dev}")
+    out = _decode.flash_decode_cuda(q, k_cache, v_cache, t, window=window, cap=cap,
+                                    block_s=block_s)
+    LAUNCHES["flash_decode"] += 1
     return out

@@ -3,8 +3,10 @@
     # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --n-queries 256
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --slo-p99-ms 50
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --arch gemma2-2b
     # the same on the CPU (the kernels' plain PyTorch versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --device cpu
 
 Search mode runs the paper's system as an online service: queries are
 admitted to the :class:`repro_torch.serve.RetrievalService`, microbatched
@@ -14,14 +16,21 @@ is printed and a batch-size/latency sweep is written to ``BENCH_serve.json``
 (with the device it ran on in its provenance). It runs the reduced
 ``mirex`` config, as the reference's driver does.
 
+Decode mode runs greedy LM decoding as the reference's ``serve_decode``
+does: the reduced config of ``--arch``, seeded random weights, batch 4, a
+cache of ``--tokens + 8`` slots, ``--tokens`` steps from position 0, each
+step's argmax fed back; every layer's attention goes through the split-KV
+decode kernel. It prints the reference's line.
+
 Same flags as `repro.launch.serve` plus ``--device`` (default ``cuda``;
 without a card and without ``--device cpu`` it raises instead of running
-on the CPU). ``--mode decode`` (LM decode) waits for the models slice.
+on the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
@@ -29,6 +38,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.core import anchors
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
 from repro_torch.obs import Metrics
 from repro_torch.serve import (
     AdaptiveBatchPolicy,
@@ -159,6 +169,24 @@ def serve_search(
           f"({sweep_sizes[0]} -> {sweep_sizes[-1]}); wrote {path}")
 
 
+def serve_decode(n_tokens: int, arch: str = "gemma2-2b", batch: int = 4, device=None):
+    dev = resolve_device(device)
+    cfg = reduced_config(arch)
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = tfm.make_serve_step(cfg, batch=batch)
+    cache = tfm.init_cache(cfg, batch, n_tokens + 8, device=dev)
+    tok = torch.ones((batch,), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    outs = []
+    for t in range(n_tokens):
+        logits, cache = step(params, cache, tok, t)
+        tok = torch.argmax(logits, dim=-1)
+        outs.append(int(tok[0]))
+    dt = time.perf_counter() - t0
+    print(f"decoded {n_tokens} tokens × {batch} sequences in {dt:.2f}s "
+          f"({dt/n_tokens*1e3:.1f} ms/token); seq0: {outs}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("search", "decode"), default="search")
@@ -184,7 +212,8 @@ def main(argv=None):
                     help="torch device (default: cuda; cpu runs the plain versions)")
     args = ap.parse_args(argv)
     if args.mode == "decode":
-        raise SystemExit("--mode decode (LM decode) waits for the models slice of the port")
+        serve_decode(args.tokens, args.arch, device=args.device)
+        return
     serve_search(
         args.n_queries,
         args.n_docs,

@@ -6,7 +6,8 @@ lexical kernel's ``lex_block_d``/``lex_tile_d``, ``token_pack`` (only
 ``"none"`` runs; the runner and the lexical session refuse the others until
 the packing slice), the dense kernel's ``dense_block_d`` and the serve
 microbatch triggers (``serve_max_batch``, ``serve_max_delay_s``,
-``serve_min_bucket``, ``serve_max_bucket``).
+``serve_min_bucket``, ``serve_max_bucket``) and the flash kernels' tiles
+(``flash_block_q``, ``flash_block_k``, ``decode_block_s``).
 Defaults reproduce the hand-picked values, so ``TuningConfig()`` is the
 identity config, and the contract is the reference's:
 
@@ -17,7 +18,7 @@ the tf reduction accumulates in int32, so run files under any legal config
 are byte-identical to the default-config run.
 
 The reference's other knobs (prefetch, workers, writer reuse, retry
-backoff, the flash kernels' blocks) wait for the slices
+backoff) wait for the slices
 that read them. :meth:`TuningConfig.from_dict` (and so ``--tuning-config``)
 accepts such a knob only at the reference's default value, which changes
 nothing, and raises ``NotImplementedError`` for any other value.
@@ -50,9 +51,6 @@ _LATER_KNOBS = {
     "writer_reuse": (False, "executor"),
     "backoff_base": (0.1, "executor"),
     "backoff_cap": (5.0, "executor"),
-    "flash_block_q": (128, "models"),
-    "flash_block_k": (128, "models"),
-    "decode_block_s": (512, "models"),
 }
 
 
@@ -81,13 +79,17 @@ class TuningConfig:
     # into <= cap dispatches; None = uncapped
     serve_max_bucket: int | None = 128
     token_pack: str = "none"  # packed corpus segments (packing slice)
+    flash_block_q: int = 128  # flash attention query tile
+    flash_block_k: int = 128  # flash attention key/value tile
+    decode_block_s: int = 512  # cache positions per split-KV decode CTA
 
     def __post_init__(self):
         for name in ("chunk_size", "lex_block_d", "dense_block_d", "serve_max_bucket"):
             v = getattr(self, name)
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"{name} must be a positive int or None, got {v!r}")
-        for name in ("keep_checkpoints", "lex_tile_d", "serve_max_batch", "serve_min_bucket"):
+        for name in ("keep_checkpoints", "lex_tile_d", "serve_max_batch", "serve_min_bucket",
+                     "flash_block_q", "flash_block_k", "decode_block_s"):
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")

@@ -33,6 +33,11 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     files = _port_files()
     assert len(files) > 20
+    names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
+    for module in ("models/transformer.py", "models/attention.py", "models/common.py",
+                   "kernels/flash_attn.py", "kernels/flash_decode.py",
+                   "configs/archs/gemma2_2b.py"):
+        assert module in names
     offenders = {
         str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files
     }
@@ -84,6 +89,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(tmp_path):
         DenseSession(np.zeros((64, 4), np.float32), k=2, chunk_size=64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--mode", "search", "--bench-out", str(tmp_path / "b.json")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--mode", "decode", "--tokens", "2"])
     assert not os.listdir(tmp_path)  # nothing ran
     assert resolve_device("cpu") == torch.device("cpu")
 
