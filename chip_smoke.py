@@ -8,8 +8,8 @@ code (nothing is caught and passed over):
 
 1. ``env``        the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``      nvcc builds every kernel source for sm_90a (one nvcc each,
-                  all started together); build time and each kernel's
-                  registers / shared memory / spills.
+                  all started together, flags per source); build time and
+                  each kernel's registers / static shared memory / spills.
 3. ``kernels``    each kernel against its plain PyTorch version on the card,
                   on the same inputs: edge shapes, one full-width segment of
                   the ``mirex`` configuration, three block settings. The
@@ -18,17 +18,21 @@ code (nothing is caught and passed over):
                   (the CPU tests' rule, ``tests/_torch_parity.py``), and to
                   the bit on integer-valued inputs; the flash attention and
                   decode kernels, on the reference's sweeps, head_dim 80,
-                  128 and 256 and two block geometries, within 3e-4 / 3e-5
-                  in float32 and 3e-2 in bfloat16, and in bfloat16 also
-                  within a limit scaled to each output row
+                  128 and 256 and two block geometries, the wgmma route's
+                  tile edges, decode positions on the card (equal to the
+                  host-int call; out of range: NaN and the error word;
+                  replayed from a CUDA graph at two positions), within
+                  3e-4 / 3e-5 in float32 and 3e-2 in bfloat16, and in
+                  bfloat16 also within a limit scaled to each output row
                   (``FLASH_ROW_TOL``), which at gemma2-2b's shapes a
                   control (the band one key block narrower) must fail.
-                  Then each kernel's time
-                  by CUDA events beside its bound and the plain version's
-                  time, and, where one PyTorch call computes the same
-                  function, that call's time (``library_ms``; for the flash
-                  kernels `scaled_dot_product_attention`, which has no soft
-                  cap, beside the kernel run with ``cap=None``).
+                  Then each kernel's time by CUDA events (decode: CUDA
+                  graphs of 50 calls) beside its bound, its achieved rate
+                  and the plain version's time, and, where one PyTorch call
+                  computes the same function, that call's time
+                  (``library_ms``; for the flash kernels
+                  `scaled_dot_product_attention`, which has no soft cap,
+                  beside the kernel run with ``cap=None``).
 4. ``experiment`` the ``bm25-grid`` experiment at the ``mirex`` width
                   (2^23 docs x 128 tokens, vocab 65,536, 64 queries, k 1000,
                   5 models, 32 segments) through `runner.run_experiment` on
@@ -52,7 +56,8 @@ code (nothing is caught and passed over):
                   timed greedy
                   decode steps; every layer's attention must launch the
                   flash kernel (26 prefill launches, 26 x 128 decode
-                  launches) and every logit must be finite. Then the same
+                  launches), every logit must be finite and the decode
+                  kernel's error word clear. Then the same
                   entry points at full width and 2 layers on 2 prompts of
                   1,024 tokens, on the card and on the CPU (plain
                   versions) from the same weights: last-position logits
@@ -152,6 +157,27 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph (after two calls outside it), the replay timed by cuda_ms. For
+    kernels of tens of microseconds, whose eager loop waits on Python."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, reps=5, warmup=1) / reps
+    del graph
+    return ms
+
+
 def phase_env(ctx) -> None:
     import torch
 
@@ -159,17 +185,56 @@ def phase_env(ctx) -> None:
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
 
-def phase_build(ctx) -> None:
-    from repro_torch.kernels import _build
+def _ptxas_kernels(report: str) -> list[dict]:
+    """Each kernel's registers, static shared memory and spills from nvcc's
+    ``-Xptxas -v`` report (names demangled by c++filt where it exists)."""
+    import re
 
+    out, cur = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "static_smem": 0,
+                   "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    if shutil.which("c++filt"):
+        import subprocess
+
+        names = subprocess.run(["c++filt"], input="\n".join(k["kernel"] for k in out),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for k, name in zip(out, names):
+                k["kernel"] = name.replace("(anonymous namespace)::", "")
+    return out
+
+
+def phase_build(ctx) -> None:
+    import torch
+
+    from repro_torch.kernels import _build, flash_attn, flash_decode
+
+    names = ["lexical_scan", "score_topk", "flash_attn", "flash_decode"]
     t0 = time.monotonic()
-    paths = _build.build_all(["lexical_scan", "score_topk", "flash_attn", "flash_decode"])
+    paths = _build.build_all(names)
     seconds = time.monotonic() - t0
-    ptxas = {}
-    for name in paths:
-        lines = _build.BUILD_LOG[name]["ptxas"].splitlines()
-        ptxas[name] = [ln.strip() for ln in lines if "ptxas info" in ln or "spill" in ln]
-    emit("build", seconds=seconds, nvcc_flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas,
+    kernels = {name: _ptxas_kernels(_build.BUILD_LOG[name]["ptxas"]) for name in paths}
+    for name, ks in kernels.items():
+        for k in ks:
+            if k["spill_stores"] or k["spill_loads"]:
+                print(f"chip_smoke: {name}: {k['kernel']} spills {k['spill_stores']} / "
+                      f"{k['spill_loads']} bytes", file=sys.stderr)
+    emit("build", seconds=seconds,
+         nvcc_flags={name: " ".join(_build.flags(name)) for name in names}, kernels=kernels,
+         dynamic_smem_at_gemma2_2b={
+             "flash_attn_wgmma<256>": flash_attn.wgmma_smem_bytes(256),
+             "flash_decode_kernel<bf16, 2>": flash_decode.smem_bytes(2, 256, torch.bfloat16, 33)},
          nvidia_smi=ctx["smi"])
 
 
@@ -472,7 +537,7 @@ def _row_excess(got, want) -> float:
     return float(((g - w).abs() / (rtol * w.abs() + tau * rms).clamp_min(1e-30)).max())
 
 
-def _flash_close(name, got, want, dtype) -> float:
+def _flash_close(name, got, want, dtype) -> dict:
     import torch
 
     rtol, atol = FLASH_TOL[str(dtype).removeprefix("torch.")]
@@ -532,6 +597,23 @@ def _flash_kernels(ctx) -> None:
                                           block_q=bq, block_k=bk)
                 want = flash_attn.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
                 results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    # the wgmma route's own geometry (head_dim 64 / 128 / 256; 128-row query
+    # blocks, 64- or 128-key tiles): one block, less than one block, no
+    # causal mask, windows one key either side of a tile's edge
+    for hd in flash_attn.WGMMA_HEAD_DIMS:
+        bk = flash_attn.wgmma_block_k(hd)
+        for s, causal, window, cap in ((128, False, None, None), (64, True, None, 50.0),
+                                       (384, True, bk + 1, 50.0), (384, True, bk - 1, None),
+                                       (256, False, bk + 1, 30.0)):
+            for dtype in (f32, bf16):
+                seed = len(results)
+                q = _rows(seed, (2, s, 8, hd), dtype)
+                k, v = _rows(seed + 1000, (2, s, 4, hd), dtype), _rows(seed + 2000, (2, s, 4, hd), dtype)
+                name = f"attn wgmma geometry hd{hd} s{s} causal{causal} w{window} cap{cap} {dtype}"
+                got = ops.flash_attention(q, k, v, causal=causal, window=window, cap=cap,
+                                          block_q=64, block_k=64)
+                want = flash_attn.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+                results.append({"case": name, **_flash_close(name, got, want, dtype)})
     # the reference's decode sweep (tests/test_kernels.py:56-67), both dtypes, two block sizes
     for s, kv, g, t in ((512, 2, 2, 300), (1024, 4, 1, 1023), (512, 1, 8, 0)):
         for window in (None, 128):
@@ -554,6 +636,28 @@ def _flash_kernels(ctx) -> None:
                 got = ops.flash_decode(q, kc, vc, t, window=window, cap=cap, block_s=bs)
                 want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=cap)
                 results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    # t on the device: 0, either side of a split edge, the last slot; windows
+    # narrower than one split and across one; equal to the host-int call
+    b, s, kv, g, hd = 2, 1100, 4, 2, 256
+    block, _ = flash_decode.split_plan(s, None, b * kv, flash_decode.sm_count("cuda"), 512)
+    for dtype in (f32, bf16):
+        seed = len(results)
+        q = _rows(seed, (b, kv * g, hd), dtype)
+        kc, vc = _rows(seed + 1000, (b, s, kv, hd), dtype), _rows(seed + 2000, (b, s, kv, hd), dtype)
+        for window in (None, 5, block + 3):
+            for t in (0, block - 1, block, s - 1):
+                name = f"decode device t{t} w{window} split {block} {dtype}"
+                got = ops.flash_decode(q, kc, vc, torch.tensor(t, dtype=torch.int32, device="cuda"),
+                                       window=window, cap=50.0)
+                if not torch.equal(got, ops.flash_decode(q, kc, vc, t, window=window, cap=50.0)):
+                    raise AssertionError(f"{name}: differs from the host-int call")
+                want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=50.0)
+                results.append({"case": name, **_flash_close(name, got, want, dtype)})
+    if flash_decode.take_error("cuda"):
+        raise AssertionError("the decode kernel set its error word on an in-range t")
+    bad = ops.flash_decode(q, kc, vc, torch.tensor(s, dtype=torch.int32, device="cuda"))
+    if not torch.isnan(bad.float()).all() or flash_decode.take_error("cuda") != 1:
+        raise AssertionError("a device t outside the cache did not give NaN and the error word")
     torch.cuda.synchronize()
     emit("kernels.flash_edge", cases=len(results),
          max_abs_err_attn_f32=max(r["max_abs_err"] for r in results if "attn" in r["case"] and "float32" in r["case"]),
@@ -596,12 +700,16 @@ def _flash_kernels(ctx) -> None:
         flops = 4 * b * h * hd * _window_pairs(s, window)
         bound_ms = 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
         bound_by = "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
-        timing[label] = {"ms": ms, "ms_cap_none": ms_nocap, "plain_ms": plain_ms,
+        timing[label] = {"ms": ms, "ms_cap_none": ms_nocap,
+                         "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "tflop_per_s": flops / ms * 1e-9, "tflop_per_s_cap_none": flops / ms_nocap * 1e-9,
+                         "library_tflop_per_s": flops / library_ms * 1e-9,
                          **close, "control_row_excess": control, "ops": flops, "bytes": n_bytes}
         emit("kernels.timing", kernel="flash_attention", layer=label,
              shape=f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, cap {cap}, window {window}, "
-             "blocks 128/128", **timing[label], plain_note="plain version: not a yardstick",
+             f"route {flash_attn.route(bf16, hd)}", **timing[label],
+             plain_note="plain version: not a yardstick",
              library_note="scaled_dot_product_attention(enable_gqa=True), causal"
              + (" with a boolean window mask" if window else "") + ": no soft cap, so it "
              "stands beside ms_cap_none; timed as a yardstick, never used by the port",
@@ -622,17 +730,48 @@ def _flash_kernels(ctx) -> None:
     slots, t = 8704, 8191
     q = _rows(53, (b, h, hd), bf16)
     kc, vc = _rows(54, (b, slots, kv, hd), bf16), _rows(55, (b, slots, kv, hd), bf16)
+    t_dev = torch.tensor(t, dtype=torch.int32, device="cuda")
+    # one call captured in a CUDA graph, replayed after writing two values of
+    # t into the same device tensor (first calls outside the capture)
+    replays = []
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, kc, vc, t_dev, window=4096, cap=cap)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.flash_decode(q, kc, vc, t_dev, window=4096, cap=cap)
+    # a call at twice the (batch, KV head) pairs between the capture and the
+    # replays: it must not disturb what the graph holds
+    wide = [torch.cat([x, x]) for x in (q, kc, vc)]
+    want = flash_decode.flash_decode_ref(*wide, t, window=4096, cap=cap)
+    replays.append({"t": t, "pairs": 2 * b * kv, **_flash_close(
+        "decode after the capture, twice the pairs", ops.flash_decode(*wide, t_dev, window=4096, cap=cap),
+        want, bf16)})
+    del wide, want
+    for t_r in (t, 5000):
+        t_dev.fill_(t_r)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = flash_decode.flash_decode_ref(q, kc, vc, t_r, window=4096, cap=cap)
+        replays.append({"t": t_r, **_flash_close(f"decode graph replay t{t_r}", replayed, want, bf16)})
+    del graph, replayed
+    t_dev.fill_(t)
     timing = {}
     for label, window in (("global", None), ("local", 4096)):
         kern = lambda c=cap, w=window: flash_decode.flash_decode_cuda(
-            q, kc, vc, t, window=w, cap=c, block_s=512)
+            q, kc, vc, t_dev, window=w, cap=c, block_s=512)
         want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=cap)
         close = _flash_close(f"decode gemma2-2b {label}", kern(), want, bf16)
         # control: one of the 512-position blocks dropped at the band's far edge
         control = _control_fails(f"decode gemma2-2b {label}", flash_decode.flash_decode_ref(
             q, kc, vc, t, window=(window or t + 1) - 512, cap=cap), want)
-        ms = cuda_ms(kern, reps=100, warmup=5)
-        ms_nocap = cuda_ms(lambda w=window: kern(None, w), reps=100, warmup=5)
+        # device time from a CUDA graph of 50 calls (a kernel of tens of
+        # microseconds waits on Python in an eager loop: ms_eager beside it)
+        ms = graph_ms(kern, 50)
+        ms_nocap = graph_ms(lambda w=window: kern(None, w), 50)
+        ms_eager = cuda_ms(kern, reps=100, warmup=5)
         plain_ms = cuda_ms(lambda w=window: flash_decode.flash_decode_ref(q, kc, vc, t, window=w, cap=cap),
                            reps=10, warmup=1)
         lo, hi = flash_decode.allowed_range(t, window)
@@ -641,22 +780,30 @@ def _flash_kernels(ctx) -> None:
         lib = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
         torch.testing.assert_close(lib()[:, :, 0].float(), kern(None, window).float(),
                                    rtol=3e-2, atol=3e-2, msg=f"sdpa decode {label}")
-        library_ms = cuda_ms(lib, reps=100, warmup=5)
+        library_ms = graph_ms(lib, 50)
+        library_ms_eager = cuda_ms(lib, reps=100, warmup=5)
         n_pos = hi - lo + 1
         dec_bytes = 2 * (2 * q.numel() + 2 * b * n_pos * kv * hd)
         flops = 4 * b * h * hd * n_pos
         bound_ms = 1e3 * max(flops / BF16_OPS_PER_S, dec_bytes / HBM_BYTES_PER_S)
         bound_by = "operations" if flops / BF16_OPS_PER_S >= dec_bytes / HBM_BYTES_PER_S else "bytes"
-        timing[label] = {"ms": ms, "ms_cap_none": ms_nocap, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        timing[label] = {"ms": ms, "ms_cap_none": ms_nocap, "ms_eager": ms_eager,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_ms_eager": library_ms_eager, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "gb_per_s": dec_bytes / ms * 1e-6, "gb_per_s_cap_none": dec_bytes / ms_nocap * 1e-6,
+                         "library_gb_per_s": dec_bytes / library_ms * 1e-6,
                          **close, "control_row_excess": control, "ops": flops, "bytes": dec_bytes}
+        plan = flash_decode.split_plan(slots, window, b * kv, flash_decode.sm_count("cuda"), 512)
         emit("kernels.timing", kernel="flash_decode", layer=label,
-             shape=f"B {b}, {slots} slots, t {t}, H {h}, KV {kv}, hd {hd}, bf16, cap {cap}, "
-             f"window {window}, block_s 512", **timing[label],
+             shape=f"B {b}, {slots} slots, t {t} (a device int32), H {h}, KV {kv}, hd {hd}, "
+             f"bf16, cap {cap}, window {window}, splits of {plan[0]} positions, {plan[1]} a pair",
+             **timing[label], graph_replays=replays,
              plain_note="plain version: not a yardstick",
              library_note="scaled_dot_product_attention(enable_gqa=True) over the allowed "
              "positions: no soft cap, so it stands beside ms_cap_none; timed as a yardstick, "
-             "never used by the port", nvidia_smi=ctx["smi"])
+             "never used by the port", timing_note="ms, ms_cap_none and library_ms from CUDA "
+             "graphs of 50 calls; ms_eager and library_ms_eager from Python loops",
+             nvidia_smi=ctx["smi"])
     g = timing["global"]
     ctx["kernels"]["flash_decode"] = {
         "name": "flash_decode", "route": "cuda",
@@ -1055,7 +1202,7 @@ def phase_lm(ctx) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_decode, ops
     from repro_torch.models import transformer as tfm
 
     ctx.pop("collection", None)  # the serve phase's corpora go first
@@ -1112,6 +1259,8 @@ def phase_lm(ctx) -> None:
                              f"{cfg.n_layers} layers")
     if not finite:
         raise AssertionError("non-finite logits in prefill or decode")
+    if flash_decode.take_error("cuda"):
+        raise AssertionError("the decode kernel set its error word (a position outside the cache)")
     peak = torch.cuda.max_memory_allocated()
     ctx["launches"]["flash_attention"] = prefill_launches["flash_attention"]
     ctx["launches"]["flash_decode"] = decode_launches["flash_decode"]

@@ -7,12 +7,16 @@ shared ``csrc/*.cuh`` headers and of the flags, so an edited source or
 header is rebuilt and a built one is reused. Nothing is built when a module
 is imported: the CPU tests import every module.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \\
-         -shared -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v [per-source flags] -o lib<name>-<hash>.so <name>.cu
 
-``--fmad=false`` keeps every product and sum rounding on its own, as the
-plain PyTorch versions do (a kernel that wants a fused multiply-add says so
-with ``__fmaf_rn``); fast math is never on.
+Each source has its own flags (:func:`flags`), and they enter its
+library's hash. ``lexical_scan`` and ``score_topk`` build with
+``--fmad=false``: every product and sum rounds on its own, as their plain
+PyTorch versions do, which their bit-exact contracts rest on (a kernel that
+wants a fused multiply-add says so with ``__fmaf_rn``). The flash kernels,
+held to tolerances and not to bits, let nvcc contract multiplies and adds
+into FMAs. Fast math is never on.
 """
 
 from __future__ import annotations
@@ -30,8 +34,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags of one source, after NVCC_FLAGS (none for a source not named here)
+SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
+    "lexical_scan": ("--fmad=false",),
+    "score_topk": ("--fmad=false",),
+    "flash_attn": (),
+    "flash_decode": (),
+}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,14 +66,20 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: the name hashes the source, every
-    ``csrc/*.cuh`` header (a source may include any of them) and the flags,
-    so an edited shared header rebuilds every kernel."""
+    """Where library ``name`` builds to: the name hashes its source, every
+    ``csrc/*.cuh`` header (a source may include any of them) and its flags,
+    so an edited shared header rebuilds every kernel and a change of one
+    source's flags rebuilds that one."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -72,7 +89,7 @@ def _start(name: str) -> tuple[Path, subprocess.Popen | None, Path | None]:
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return out, proc, tmp
 
@@ -99,7 +116,7 @@ def build_all(names) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         path = build_all([name])[name]

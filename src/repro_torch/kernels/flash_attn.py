@@ -10,10 +10,14 @@ Two versions of one function, ``q [B,S,H,hd]``, ``k``/``v [B,S,KV,hd]`` ->
   row's softmax covers all its keys, so the chunk changes nothing), masked
   with ``NEG`` (never ``-inf``), probabilities rounded to ``v``'s dtype
   before the P.V product as the kernel does, accumulated in float32.
-* :func:`flash_attention_cuda`, the hand-written CUDA kernel
-  (``csrc/flash_attn.cu``): one CTA per (b, h, q block) looping over the KV
-  blocks with the online-softmax state in registers; bfloat16 on the tensor
-  cores (``mma.sync``), float32 on the CUDA cores.
+* :func:`flash_attention_cuda`, the hand-written CUDA kernels
+  (``csrc/flash_attn.cu``), a CTA per query block looping over the KV
+  blocks with the online-softmax state in registers. Three routes, chosen
+  by dtype and head_dim alone (:func:`route`): bfloat16 at head_dim 64, 128
+  and 256 on TMA and ``wgmma`` (a producer warp and two consumer
+  warpgroups, tile fixed at 128 query rows x :func:`wgmma_block_k` keys);
+  bfloat16 at head_dim 32 and 80 on ``mma.sync`` (tile ``block_q`` x
+  ``block_k``); float32 on the CUDA cores.
 
 `repro_torch.kernels.ops.flash_attention` picks one by the tensors' device.
 """
@@ -28,11 +32,15 @@ from repro_torch.kernels import _build
 
 NEG = -1e30
 ROW_CHUNK = 512  # query rows per step of the plain version
-# head dims the bfloat16 kernel is built for (csrc/flash_attn.cu's switch)
-BF16_HEAD_DIMS = (32, 64, 80, 128, 256)
-SUB_KEYS = 64  # keys per compute sub-tile of the bfloat16 kernel
+# head dims each bfloat16 route is built for (csrc/flash_attn.cu's switch)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+MMA_HEAD_DIMS = (32, 80)
+BF16_HEAD_DIMS = tuple(sorted(WGMMA_HEAD_DIMS + MMA_HEAD_DIMS))
+SUB_KEYS = 64  # keys per compute sub-tile of the mma.sync route
 F32_MAX_HD = 256
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
+WGMMA_BLOCK_Q = 128  # query rows per CTA of the wgmma route (two warpgroups of 64)
+WGMMA_STAGES = 2  # depth of its K/V ring
 
 
 def _allowed(pos_q, pos_k, causal: bool, window: int | None):
@@ -69,18 +77,48 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int | None = No
     return out
 
 
+def route(dtype, hd: int) -> str:
+    """The kernel a call takes, by dtype and head_dim alone: ``"wgmma"``,
+    ``"mma"`` or ``"f32"``. Raises for a bfloat16 head_dim no route is
+    built for."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash kernel: dtype {dtype} (float32 or bfloat16 expected)")
+    if hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if hd in MMA_HEAD_DIMS:
+        return "mma"
+    raise ValueError(f"the bf16 flash kernels are built for head_dim {BF16_HEAD_DIMS}, got {hd}")
+
+
+def wgmma_block_k(hd: int) -> int:
+    """Keys per K/V tile of the wgmma route (`WgLayout<HD>::BK`)."""
+    return 64 if hd == 256 else 128
+
+
+def wgmma_smem_bytes(hd: int) -> int:
+    """Shared memory of the wgmma route (`WgLayout<HD>::kBytes`): Q for
+    128 rows, two stages of K and V tiles, 9 mbarriers, and 1024 bytes to
+    align the tiles to the 128-byte swizzle's 1024-byte atoms."""
+    bk = wgmma_block_k(hd)
+    return WGMMA_BLOCK_Q * hd * 2 + 2 * WGMMA_STAGES * bk * hd * 2 + (1 + 4 * WGMMA_STAGES) * 8 \
+        + 1024
+
+
 def smem_bytes(block_q: int, block_k: int, hd: int) -> int:
-    """Shared memory of the bfloat16 kernel: Q, K and V tiles, each row
+    """Shared memory of the mma.sync route: Q, K and V tiles, each row
     padded by 8 elements (the float32 kernel stages one row per warp)."""
     return (block_q + 2 * block_k) * (hd + 8) * 2
 
 
 def check_geometry(dtype, s: int, hd: int, block_q: int, block_k: int) -> None:
-    """Raise ValueError for sizes the CUDA kernel does not take."""
-    if dtype == torch.bfloat16:
-        if hd not in BF16_HEAD_DIMS:
-            raise ValueError(f"the bf16 flash kernel is built for head_dim {BF16_HEAD_DIMS}, "
-                             f"got {hd}")
+    """Raise ValueError for sizes the CUDA kernels do not take. The wgmma
+    route's tile is its own (any ``s``: rows and keys past the end are
+    masked); ``block_q`` / ``block_k`` shape only the mma.sync and float32
+    routes, and every route needs them to divide ``s``, as the reference."""
+    kind = route(dtype, hd)
+    if kind == "mma":
         if block_q % 16 or not 16 <= block_q <= 128:
             raise ValueError(f"flash kernel: block_q {block_q} must be a multiple of 16 "
                              "in 16..128 (one warp per 16 rows)")
@@ -92,12 +130,9 @@ def check_geometry(dtype, s: int, hd: int, block_q: int, block_k: int) -> None:
                 f"flash kernel: a {block_q}x{block_k} tile at head_dim {hd} needs {need} bytes "
                 f"of shared memory, over the {SMEM_LIMIT} a block may use; lower "
                 "flash_block_q / flash_block_k")
-    elif dtype == torch.float32:
-        if hd % 4 or hd > F32_MAX_HD:
-            raise ValueError(f"the float32 flash kernel takes head_dim a multiple of 4 up to "
-                             f"{F32_MAX_HD}, got {hd}")
-    else:
-        raise TypeError(f"flash kernel: dtype {dtype} (float32 or bfloat16 expected)")
+    elif hd % 4 or hd > F32_MAX_HD:
+        raise ValueError(f"the float32 flash kernel takes head_dim a multiple of 4 up to "
+                         f"{F32_MAX_HD}, got {hd}")
     if s % block_q or s % block_k:
         raise ValueError(f"sequence {s} not divisible by block_q {block_q} / block_k {block_k}")
 
@@ -116,9 +151,9 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None, cap: float | None,
                          block_q: int, block_k: int) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous CUDA tensors of one dtype
-    (checked by the caller). Raises on any build or launch error, and on
-    sizes the kernel cannot take."""
+    """Launch the CUDA kernel of :func:`route` on contiguous CUDA tensors of
+    one dtype (checked by the caller). Raises on any build, tensor-map or
+    launch error, and on sizes the kernel cannot take."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     check_geometry(q.dtype, s, hd, block_q, block_k)

@@ -181,10 +181,18 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
     """Split-KV single-token decode. ``q [B,H,hd]``, caches ``[B,S,KV,hd]``
     of one dtype -> ``[B,H,hd]``, attending to positions ``<= t``.
 
-    ``t`` is a host ``int`` (a tensor is read once with ``int()``, a sync
-    for a CUDA tensor); ``0 <= t < S``. ``block_s=None`` takes the active
-    tuning's ``decode_block_s`` (512 when untuned). ``S`` need not be a
-    multiple of ``block_s``: positions past ``t`` are never read.
+    ``t`` is a host ``int`` or a one-element integer tensor. On the card a
+    CUDA ``t`` is read by the kernel itself (an int64 one is cast on the
+    card first): nothing syncs with the host, the launch shape does not
+    depend on ``t``, and the call can be captured in a CUDA graph; a ``t``
+    outside ``[0, S)`` then gives NaN outputs and sets the error word that
+    `flash_decode.take_error` reads. A host ``t`` (or a CPU tensor) is
+    checked here, ``0 <= t < S``, and on the card copied to the device once
+    per call. ``block_s=None`` takes the active tuning's
+    ``decode_block_s`` (512 when untuned), the most positions a split of
+    the kernel takes (`flash_decode.split_plan` picks fewer to fill the
+    card). ``S`` need not be a multiple of ``block_s``: positions past
+    ``t`` are never read.
     """
     if block_s is None:
         block_s = tune_config.active().config.decode_block_s
@@ -194,6 +202,17 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
             or q.shape[1] % k_cache.shape[2]:
         raise ValueError(f"flash_decode: q [B,H,hd] and caches [B,S,KV,hd] with KV dividing "
                          f"H expected, got {tuple(q.shape)}, {tuple(k_cache.shape)}")
+    if isinstance(t, torch.Tensor):
+        if t.numel() != 1 or t.dtype.is_floating_point or t.dtype.is_complex \
+                or t.dtype == torch.bool:
+            raise TypeError(f"flash_decode: t must be an int or one integer, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if dev.type == "cuda" and t.device == dev:
+            t_dev = t.reshape(()).to(torch.int32)  # no copy for an int32 t
+            out = _decode.flash_decode_cuda(q, k_cache, v_cache, t_dev, window=window,
+                                            cap=cap, block_s=block_s)
+            LAUNCHES["flash_decode"] += 1
+            return out
     t = int(t)
     if not 0 <= t < k_cache.shape[1]:
         raise ValueError(f"flash_decode: position t={t} outside a cache of {k_cache.shape[1]}")
@@ -201,7 +220,8 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
         return _decode.flash_decode_ref(q, k_cache, v_cache, t, window=window, cap=cap)
     if dev.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {dev}")
-    out = _decode.flash_decode_cuda(q, k_cache, v_cache, t, window=window, cap=cap,
+    t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+    out = _decode.flash_decode_cuda(q, k_cache, v_cache, t_dev, window=window, cap=cap,
                                     block_s=block_s)
     LAUNCHES["flash_decode"] += 1
     return out

@@ -230,7 +230,9 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
 
     ``serve_step(params, cache, tokens [B], t) -> (logits [B,V] float32,
     cache)``; ``t`` is the new token's position, a host int (a tensor is
-    read once). The cache is updated in place and returned.
+    read once). The cache is updated in place and returned. The step makes
+    one int32 tensor of ``t`` on the cache's device and hands it to every
+    layer's `ops.flash_decode`, whose kernel reads it on the card.
     """
     _dense_only(cfg)
     windows = _layer_windows(cfg)
@@ -246,6 +248,7 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
             raise ValueError(f"position t={t} outside a cache of {cache['k'].shape[2]}")
         x = _embed(params, tokens, cfg)  # [B, D]
         cos, sin = rope_angles(torch.tensor([t], device=x.device), hd, cfg.rope_theta)
+        t_dev = torch.full((), t, dtype=torch.int32, device=x.device)
         for i, windowed in enumerate(windows):
             lp = _layer(params, i)
             y = rms_norm(x, lp["attn_norm"], one_plus=cfg.rms_one_plus)
@@ -258,7 +261,7 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
             # kernel then reads positions <= t, and no step copies the cache
             cache["k"][i, :, t] = kn.to(cache["k"].dtype)
             cache["v"][i, :, t] = vn.to(cache["v"].dtype)
-            o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t,
+            o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t_dev,
                                  window=_window(cfg) if windowed else None,
                                  cap=cfg.attn_softcap).to(dt)
             x = x + (o.reshape(b, h * hd) @ lp["wo"]).to(dt)

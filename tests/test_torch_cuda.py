@@ -8,9 +8,11 @@ no JAX (the machine with the card has none), so it runs there on its own:
 The lexical scan must agree with its plain version to the bit; the dense
 score + top-k within 1e-5 with ids equal except at float near-ties
 (`_torch_parity`, the plain ranking taken 8 places deeper), and to the bit
-on integer-valued inputs; the flash attention and decode kernels within
-3e-4 / 3e-5 in float32 and 3e-2 in bfloat16 (the reference's tolerances),
-and the reduced LM on the card within 1e-4 / 1e-5 of the CPU. ``chip_smoke.py`` makes the same checks at the
+on integer-valued inputs; the flash attention and decode kernels (every
+attention route; decode with ``t`` on the host and on the card, and
+replayed from a CUDA graph) within 3e-4 / 3e-5 in float32 and 3e-2 in
+bfloat16 (the reference's tolerances), and the reduced LM on the card
+within 1e-4 / 1e-5 of the CPU. ``chip_smoke.py`` makes the same checks at the
 full width.
 """
 
@@ -117,6 +119,17 @@ FLASH_CASES = [
     (1, 512, 8, 4, 256, True, None, 50.0, 64, 64, torch.bfloat16),
     (1, 512, 8, 2, 80, True, 100, None, 128, 64, torch.bfloat16),
     (1, 256, 32, 16, 128, False, None, 50.0, 128, 128, torch.bfloat16),
+    # the wgmma route (head_dim 64 / 128 / 256): one 128-row block, S under
+    # one block, no causal mask, windows that cross 64- and 128-key tiles,
+    # and a ring that wraps many times
+    (2, 128, 4, 2, 64, False, None, None, 64, 64, torch.bfloat16),
+    (2, 64, 4, 2, 64, True, None, 50.0, 64, 64, torch.bfloat16),
+    (2, 256, 8, 2, 64, True, 70, 30.0, 64, 64, torch.bfloat16),
+    (1, 512, 4, 4, 128, False, 200, None, 128, 128, torch.bfloat16),
+    (1, 384, 8, 2, 128, True, 130, 50.0, 128, 128, torch.bfloat16),
+    (1, 128, 8, 4, 256, False, None, 50.0, 128, 128, torch.bfloat16),
+    (1, 384, 8, 4, 256, True, 100, 50.0, 128, 128, torch.bfloat16),
+    (1, 1024, 8, 4, 256, True, None, None, 128, 128, torch.bfloat16),
 ]
 # b, s, kv, g, hd, t, window, cap, block_s, dtype
 DECODE_CASES = [
@@ -166,6 +179,107 @@ def test_cuda_flash_decode_matches_plain_version():
                                    msg=str(DECODE_CASES[n]))
     with pytest.raises(ValueError, match="outside a cache"):
         ops.flash_decode(q, kc, vc, s)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_device_t_matches_plain_version():
+    """``t`` as a device int32 at 0, at both sides of a split edge and at the
+    last slot, windows narrower than one split and across one: the kernel
+    equals its host-int call bit for bit and the plain version within the
+    reference's tolerances."""
+    dev = _card()
+    b, s, kv, g, hd = 2, 1100, 4, 2, 256
+    block, _ = flash_decode.split_plan(s, None, b * kv, flash_decode.sm_count(dev), 512)
+    for n, dtype in enumerate((torch.float32, torch.bfloat16)):
+        q = _rows(200 + n, (b, kv * g, hd), dtype, dev)
+        kc, vc = _rows(210 + n, (b, s, kv, hd), dtype, dev), _rows(220 + n, (b, s, kv, hd), dtype, dev)
+        for window in (None, 5, block + 3):
+            for t in (0, block - 1, block, s - 1):
+                t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+                got = ops.flash_decode(q, kc, vc, t_dev, window=window, cap=50.0)
+                host = ops.flash_decode(q, kc, vc, t, window=window, cap=50.0)
+                assert torch.equal(got, host), (dtype, window, t)
+                want = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=50.0)
+                tol = 3e-4 if dtype == torch.float32 else 3e-2
+                atol = 3e-5 if dtype == torch.float32 else 3e-2
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=atol,
+                                           msg=str((dtype, window, t)))
+    assert flash_decode.take_error(dev) == 0
+    # a device t outside the cache: NaN outputs and the error word, no raise
+    bad = ops.flash_decode(q, kc, vc, torch.tensor(s, dtype=torch.int32, device=dev))
+    assert torch.isnan(bad.float()).all()
+    assert flash_decode.take_error(dev) == 1
+    assert flash_decode.take_error(dev) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_graph_replays_at_two_positions():
+    """One call captured in a CUDA graph, replayed after writing two values
+    of ``t`` into the same device tensor: each replay equals the plain
+    version at that ``t``."""
+    dev = _card()
+    b, s, kv, g, hd = 4, 2048, 4, 2, 256
+    q = _rows(300, (b, kv * g, hd), torch.bfloat16, dev)
+    kc, vc = _rows(301, (b, s, kv, hd), torch.bfloat16, dev), _rows(302, (b, s, kv, hd), torch.bfloat16, dev)
+    t_dev = torch.tensor(7, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # first calls (build, attributes) outside the capture
+        ops.flash_decode(q, kc, vc, t_dev, window=1000, cap=50.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(q, kc, vc, t_dev, window=1000, cap=50.0)
+    for t in (1500, 300):
+        t_dev.fill_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = flash_decode.flash_decode_ref(q, kc, vc, t, window=1000, cap=50.0)
+        torch.testing.assert_close(out.float(), want.float(), rtol=3e-2, atol=3e-2, msg=str(t))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_graph_and_streams_share_no_state():
+    """A call captured at 8 (batch, KV head) pairs, then an eager call at 16
+    and calls on two streams at once, then the replay: every output equals
+    the plain version (the counters that find each pair's merging CTA are
+    the call's own, never a shared buffer a graph or another stream holds)."""
+    dev = _card()
+    s, kv, g, hd = 2048, 4, 2, 256
+    bf16 = torch.bfloat16
+
+    def inputs(seed, b):
+        return (_rows(seed, (b, kv * g, hd), bf16, dev), _rows(seed + 1, (b, s, kv, hd), bf16, dev),
+                _rows(seed + 2, (b, s, kv, hd), bf16, dev))
+
+    def check(got, args, t, msg):
+        want = flash_decode.flash_decode_ref(*args, t, cap=50.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2, msg=msg)
+
+    small, large = inputs(400, 2), inputs(410, 4)
+    t_dev = torch.tensor(1800, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(*small, t_dev, cap=50.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.flash_decode(*small, t_dev, cap=50.0)
+    check(ops.flash_decode(*large, t_dev, cap=50.0), large, 1800, "16 pairs after the capture")
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for stream, args in zip(streams, (small, large)):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append([ops.flash_decode(*args, 2047 - i, cap=50.0) for i in range(8)])
+    torch.cuda.synchronize()
+    for args, got in zip((small, large), outs):
+        for i, o in enumerate(got):
+            check(o, args, 2047 - i, f"two streams, t {2047 - i}")
+    graph.replay()
+    torch.cuda.synchronize()
+    check(replayed, small, 1800, "replay after the larger call")
 
 
 @pytest.mark.cuda

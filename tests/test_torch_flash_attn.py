@@ -124,13 +124,60 @@ def test_flash_attention_kernel_geometry_checks():
     assert flash_attn.smem_bytes(128, 128, 256) == 202_752 <= flash_attn.SMEM_LIMIT
     flash_attn.check_geometry(bf16, 256, 80, 64, 64)
     flash_attn.check_geometry(f32, 256, 256, 128, 128)
+    # the mma.sync route (head_dim 32 / 80) still tiles by block_q x block_k
     with pytest.raises(ValueError, match="shared memory"):
-        flash_attn.check_geometry(bf16, 512, 256, 128, 256)
+        flash_attn.check_geometry(bf16, 1024, 80, 128, 1024)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attn.check_geometry(bf16, 256, 96, 64, 64)
     with pytest.raises(ValueError, match="multiple of 64"):
-        flash_attn.check_geometry(bf16, 256, 64, 64, 32)
+        flash_attn.check_geometry(bf16, 256, 32, 64, 32)
     with pytest.raises(ValueError, match="multiple of 16"):
-        flash_attn.check_geometry(bf16, 256, 64, 256, 64)
+        flash_attn.check_geometry(bf16, 256, 80, 256, 64)
     with pytest.raises(ValueError, match="multiple of 4"):
         flash_attn.check_geometry(f32, 256, 18, 64, 64)
+    # the wgmma route's tile is its own: block_q / block_k only divide S
+    flash_attn.check_geometry(bf16, 256, 64, 64, 32)
+    flash_attn.check_geometry(bf16, 512, 256, 128, 256)
+    with pytest.raises(ValueError, match="not divisible"):
+        flash_attn.check_geometry(bf16, 200, 128, 64, 64)
+
+
+@pytest.mark.parametrize("hd,want", [(64, "wgmma"), (128, "wgmma"), (256, "wgmma"),
+                                     (32, "mma"), (80, "mma")])
+def test_flash_attention_route_by_head_dim_alone(hd, want):
+    """bfloat16 picks its kernel by head_dim alone; float32 always takes the
+    CUDA-core kernel; a head_dim no route is built for raises."""
+    assert flash_attn.route(torch.bfloat16, hd) == want
+    assert flash_attn.route(torch.float32, hd) == "f32"
+    assert flash_attn.BF16_HEAD_DIMS == (32, 64, 80, 128, 256)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attn.route(torch.bfloat16, hd + 8)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attn.route(torch.float16, hd)
+
+
+def test_flash_attention_wgmma_shared_memory_budget():
+    """Q for 128 rows, two stages of K and V, 9 mbarriers and 1024 bytes of
+    alignment slack, under the 232,448 bytes a block may use: 192 KiB of
+    tiles at head_dim 256 (64-key tiles), 160 KiB at 128 and 80 KiB at 64
+    (128-key tiles)."""
+    assert [flash_attn.wgmma_block_k(hd) for hd in (64, 128, 256)] == [128, 128, 64]
+    tiles = {64: 80 * 1024, 128: 160 * 1024, 256: 192 * 1024}
+    for hd, want in tiles.items():
+        assert flash_attn.wgmma_smem_bytes(hd) == want + 9 * 8 + 1024 <= flash_attn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hd,s,causal,window", [(64, 128, False, 70), (128, 64, True, None),
+                                                (256, 128, True, 100)])
+def test_flash_attention_wgmma_route_shapes_match_reference(hd, s, causal, window):
+    """Shapes the wgmma route meets on the card (one 128-row block, S under
+    one block, no causal mask, windows across its 64- and 128-key tiles):
+    the plain version against the reference, bfloat16."""
+    rng = np.random.default_rng(hd + s)
+    q = _rand(rng, (1, s, 4, hd), "bfloat16")
+    k = _rand(rng, (1, s, 2, hd), "bfloat16")
+    v = _rand(rng, (1, s, 2, hd), "bfloat16")
+    mine, pallas, oracle = _both(q, k, v, causal=causal, window=window, cap=50.0,
+                                 block_q=64, block_k=64)
+    np.testing.assert_allclose(mine, pallas, **BF16_TOL)
+    np.testing.assert_allclose(mine, oracle, **BF16_TOL)

@@ -110,5 +110,86 @@ def test_flash_decode_wrapper_and_kernel_checks():
         flash_decode.check_geometry(torch.float32, 32, 2, 64, 512)
     with pytest.raises(ValueError, match="multiple of 8"):
         flash_decode.check_geometry(torch.bfloat16, 8, 4, 36, 512)
-    with pytest.raises(ValueError, match="shared memory"):
-        flash_decode.check_geometry(torch.float32, 64, 8, 256, 1 << 14)
+    # the split size no longer sizes shared memory; it must be whole rounds
+    flash_decode.check_geometry(torch.float32, 64, 8, 256, 1 << 14)
+    with pytest.raises(ValueError, match="block_s"):
+        flash_decode.check_geometry(torch.float32, 64, 8, 256, 1000)
+
+
+SPLIT_EDGE = flash_decode.split_plan(512, None, 2 * 2, 132, 128)[0]  # a split edge on an H100
+
+
+@pytest.mark.parametrize("t", [0, SPLIT_EDGE - 1, SPLIT_EDGE, 511])
+@pytest.mark.parametrize("window", [None, 5, SPLIT_EDGE + 3])
+def test_flash_decode_scalar_tensor_t_matches_host_int_and_reference(t, window):
+    """``t`` as a 0-d int32 tensor: the same result as the host int, and the
+    reference's Pallas kernel given ``jnp.int32(t)`` (interpret mode) and
+    oracle within float32's 3e-4 / 3e-5, at 0, both sides of a split edge
+    and the last slot, windows narrower than one split and across one."""
+    rng = np.random.default_rng(t + 7 * (window or 0))
+    b, s, kv, g, hd = 2, 512, 2, 2, 32
+    q = _rand(rng, (b, kv * g, hd), "float32")
+    kc = _rand(rng, (b, s, kv, hd), "float32")
+    vc = _rand(rng, (b, s, kv, hd), "float32")
+    args = [convert.vectors_from_numpy(x) for x in (q, kc, vc)]
+    mine = ops.flash_decode(*args, torch.tensor(t, dtype=torch.int32), window=window, cap=30.0)
+    host = ops.flash_decode(*args, t, window=window, cap=30.0)
+    assert torch.equal(mine, host)
+    pallas = ref_ops.flash_decode(*(jnp.asarray(x) for x in (q, kc, vc)), jnp.int32(t),
+                                  window=window, cap=30.0, block_s=128)
+    oracle = ref_oracles.flash_decode_ref(*(jnp.asarray(x) for x in (q, kc, vc)), t,
+                                          window=window, cap=30.0)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(pallas), **F32_TOL)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(oracle), **F32_TOL)
+
+
+@pytest.mark.parametrize("s,window,pairs,n_sm,max_block", [
+    (8704, None, 16, 132, 512), (8704, 4096, 16, 132, 512), (1100, None, 8, 132, 512),
+    (1100, 512, 8, 132, 256), (512, 128, 4, 132, 128), (40, 8, 4, 132, 512),
+    (700, 300, 16, 132, 256), (300, 1, 2, 132, 512), (5000, None, 1, 132, 16),
+])
+def test_flash_decode_split_plan_covers_the_allowed_range_once(s, window, pairs, n_sm,
+                                                               max_block):
+    """For every t of the cache, the launch's splits take [lo, t] exactly
+    once, and the ones that hold positions are the first n_active (those
+    the last CTA merges), with n_active <= n_splits; the plan aims at a few
+    CTAs per SM and never passes max_block unless MAX_SPLITS forces it."""
+    block, n = flash_decode.split_plan(s, window, pairs, n_sm, max_block)
+    assert block % flash_decode.SPLIT_ALIGN == 0 and 1 <= n <= flash_decode.MAX_SPLITS
+    floor = -(-s // flash_decode.MAX_SPLITS)  # positions per split MAX_SPLITS forces
+    assert block <= max(max_block, -(-floor // flash_decode.SPLIT_ALIGN) * flash_decode.SPLIT_ALIGN)
+    for t in range(s):
+        lo, _ = flash_decode.allowed_range(t, window)
+        ranges = flash_decode.split_ranges(t, window, block, n)
+        full = [(a, e) for a, e in ranges if e > a]
+        n_active = t // block - lo // block + 1
+        assert ranges[:n_active] == full and len(full) == n_active <= n, t
+        covered = [p for a, e in full for p in range(a, e)]
+        assert covered == list(range(lo, t + 1)), t
+
+
+def test_flash_decode_shared_memory_budget():
+    """The rings (4 warps x 3 stages x 4 positions of K and V), reused for the
+    warps' states and the last CTA's split weights: 48 KiB at gemma2-2b's
+    bfloat16 head_dim 256, 96 KiB in float32, under the kernel's 128 KiB
+    permission (the H100 allows 227 KiB) at every G <= 8 and head_dim <= 256."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert flash_decode.smem_bytes(2, 256, bf16, 33) == 48 * 1024
+    assert flash_decode.smem_bytes(2, 256, f32, 33) == 96 * 1024
+    assert flash_decode.smem_bytes(8, 32, bf16, 1024) == 4 * (1024 * 8 + 8)  # the weights
+    for g in range(1, flash_decode.MAX_G + 1):
+        for dtype in (bf16, f32):
+            need = flash_decode.smem_bytes(g, 256, dtype, flash_decode.MAX_SPLITS)
+            assert need <= flash_decode.SMEM_LIMIT
+
+
+def test_flash_decode_t_must_be_an_integer():
+    q = torch.zeros((2, 4, 32))
+    kc = torch.zeros((2, 64, 2, 32))
+    for bad in (torch.tensor(3.0), torch.tensor([3, 4]), torch.tensor(True)):
+        with pytest.raises(TypeError, match="t must be"):
+            ops.flash_decode(q, kc, kc, bad)
+    for t in (torch.tensor(64, dtype=torch.int32), torch.tensor([-1])):
+        with pytest.raises(ValueError, match="outside a cache"):
+            ops.flash_decode(q, kc, kc, t)
+

@@ -197,3 +197,24 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "extra.cuh").write_text("// new header\n")
     assert _build.library_path("a") != after["a"]
     assert _build.library_path("a").name.startswith("liba-")
+
+
+def test_library_name_hashes_each_sources_flags(tmp_path, monkeypatch):
+    """A change of one source's flags rebuilds that library and no other;
+    the bit-exact kernels keep --fmad=false, the flash kernels may contract
+    into FMAs."""
+    for name in ("lexical_scan", "score_topk"):
+        assert "--fmad=false" in _build.flags(name)
+    for name in ("flash_attn", "flash_decode"):
+        assert "--fmad=false" not in _build.flags(name)
+        assert _build.flags(name)[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    for name in ("a", "b"):
+        (tmp_path / f"{name}.cu").write_text("// the same bytes\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "a", ())
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "b", ())
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "a", ("--fmad=false",))
+    assert _build.library_path("a") != before["a"]
+    assert _build.library_path("b") == before["b"]
+
