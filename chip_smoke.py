@@ -13,10 +13,15 @@ code (nothing is caught and passed over):
 3. ``kernels``    each kernel against its plain PyTorch version on the card,
                   on the same inputs: edge shapes, one full-width segment of
                   the ``mirex`` configuration, three block settings. The
-                  lexical scan must agree to the bit; the dense score+top-k
-                  within 1e-5 with ids equal except at float near-ties
-                  (the CPU tests' rule, ``tests/_torch_parity.py``), and to
-                  the bit on integer-valued inputs; the flash attention and
+                  lexical scan must agree to the bit (also at 128 queries
+                  with repeated terms, and above the term bitmap's
+                  vocabulary); the dense score+top-k within 1e-5 with ids
+                  equal except at float near-ties (the CPU tests' rule,
+                  ``tests/_torch_parity.py``), at the serving buckets 8 and
+                  128 with k 1000, and to the bit on integer-valued inputs
+                  (float32 and bfloat16) and where most documents tie; a
+                  query's dense result must be the same bits in a bucket of
+                  8, 64 or 128; the flash attention and
                   decode kernels, on the reference's sweeps, head_dim 80,
                   128 and 256 and two block geometries, the wgmma route's
                   tile edges, decode positions on the card (equal to the
@@ -27,8 +32,10 @@ code (nothing is caught and passed over):
                   (``FLASH_ROW_TOL``), which at gemma2-2b's shapes a
                   control (the band one key block narrower) must fail.
                   Then each kernel's time by CUDA events (decode: CUDA
-                  graphs of 50 calls) beside its bound, its achieved rate
-                  and the plain version's time, and, where one PyTorch call
+                  graphs of 50 calls) beside its bound (the scan kernels:
+                  the least work of their inputs, with the earlier designs'
+                  bounds beside it), its achieved rate, registers and
+                  spills, and the plain version's time, and, where one PyTorch call
                   computes the same function, that call's time
                   (``library_ms``; for the flash kernels
                   `scaled_dot_product_attention`, which has no soft cap,
@@ -105,8 +112,9 @@ FP32_OPS_PER_S = 128 * 2 * 132 * 1.98e9
 # ``mirex`` config's dense_dim (src/repro/configs/archs/mirex.py)
 DENSE_DOCS, DENSE_QUERIES = 1 << 24, 4096
 DEEPER = 8  # reference rankings this much deeper show near-ties across the cut
-# bfloat16 dense tensor-core peak (NVIDIA data sheet, H100 SXM at 700 W)
+# bfloat16 and TF32 dense tensor-core peaks (NVIDIA data sheet, H100 SXM at 700 W)
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 # the kernels' tolerances against their plain versions (the reference's own,
 # tests/test_kernels.py): (rtol, atol) by dtype name
 FLASH_TOL = {"float32": (3e-4, 3e-5), "bfloat16": (3e-2, 3e-2)}
@@ -238,9 +246,10 @@ def phase_build(ctx) -> None:
          nvidia_smi=ctx["smi"])
 
 
-def _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, device):
+def _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, device, repeat=False):
     """Random tokens from a small vocab (ties everywhere), query pads, and
-    ``n_empty`` zero-length rows, with the epilogues of ``grid``."""
+    ``n_empty`` zero-length rows, with the epilogues of ``grid``; with
+    ``repeat`` the second half of the queries repeats the first."""
     import numpy as np
     import torch
 
@@ -254,6 +263,8 @@ def _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, device):
     q = rng.integers(0, vocab, size=(n_q, l_q)).astype(np.int32)
     q_lens = rng.integers(1, l_q + 1, size=n_q)
     q[np.arange(l_q)[None, :] >= q_lens[:, None]] = scoring.PAD_TOKEN
+    if repeat:
+        q[n_q // 2 : 2 * (n_q // 2)] = q[: n_q // 2]
     d_tokens = torch.as_tensor(toks, device=device)
     d_len = torch.as_tensor(lens, device=device)
     queries = torch.as_tensor(q, device=device)
@@ -279,6 +290,14 @@ def _compare(name, kern, plain) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def _ptxas_of(name: str) -> list[dict]:
+    """Registers, static shared memory and spills of a source's kernels, from
+    the nvcc report of its build in this process."""
+    from repro_torch.kernels import _build
+
+    return _ptxas_kernels(_build.BUILD_LOG.get(name, {}).get("ptxas", ""))
+
+
 def _bm25_grid():
     from repro_torch.experiments import grid as exp_grid
 
@@ -301,7 +320,7 @@ def phase_kernels(ctx) -> None:
         scoring.get_scorer("tfidf"),
     ]
     bm25_only = [scoring.get_scorer("bm25")]
-    # name, seed, n_d, L_d, n_q, L_q, vocab, zero-length rows, grid, k, block_d, tile_d
+    # name, seed, n_d, L_d, n_q, L_q, vocab, zero-length rows, grid, k, block_d, tile_d[, repeat]
     cases = [
         ("edge_mixed", 1, 300, 23, 7, 5, 30, 40, mixed, 37, 100, 16),
         ("k_above_docs", 2, 64, 16, 5, 3, 12, 8, mixed, 100, 64, 16),
@@ -311,12 +330,20 @@ def phase_kernels(ctx) -> None:
         ("pow2_k_small_block", 6, 4096, 64, 12, 8, 200, 64, mixed, 64, 32, 64),
         ("rows_of_200", 7, 1024, 200, 6, 4, 50, 16, mixed, 30, 512, 16),
         ("rows_of_300", 8, 512, 300, 5, 3, 60, 16, mixed, 30, 256, 32),
-        # k_pad 4096: three models fill a CTA, so the launch runs in two groups
-        ("model_groups", 9, 8192, 24, 4, 4, 40, 64, mixed, 3000, 4096, 16),
+        # k_pad 4096: states longer than the corpus's share of any CTA
+        ("long_states", 9, 8192, 24, 4, 4, 40, 64, mixed, 3000, 4096, 16),
+        # 128 queries (a serving block), the second half repeating the first,
+        # over many tiles: one term table, shared counts, 640 lists a CTA
+        ("queries_128_repeated", 10, 16_384, 64, 128, 4, 300, 200, mixed, 100, 4096, 32, True),
+        ("queries_128_one_model", 11, 32_768, 128, 128, 4, 2000, 100, bm25_only, 1000, 8192, 16,
+         True),
+        # 300 query terms in 75 queries: a vocabulary above the bitmap's 65,536
+        ("vocab_above_bitmap", 12, 4096, 32, 75, 4, 200_000, 50, mixed, 64, 1024, 16),
     ]
     results = []
-    for name, seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, k, block_d, tile_d in cases:
-        q, w, ab, d, dl, modes = _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, dev)
+    for name, seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, k, block_d, tile_d, *rep in cases:
+        q, w, ab, d, dl, modes = _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, dev,
+                                              repeat=bool(rep))
         plain = lexical_scan.lexical_scan_topk_ref(
             q, w, ab, d, dl, modes=modes, k=k, block_d=block_d, tile_d=tile_d)
         kern = ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes, k=k,
@@ -355,10 +382,22 @@ def phase_kernels(ctx) -> None:
     plain_ms = cuda_ms(lambda: lexical_scan.lexical_scan_topk_ref(
         *args, modes=modes, k=k, block_d=16_384), reps=3)
     n_q, l_q = q.shape
-    ops_count = 2 * n_q * l_q * n_seg * l_d  # one compare + one add per pair
+    # the least work of these inputs: every input read once and the outputs
+    # written once; one lookup per token and one epilogue + compare per
+    # (model, query, doc), counted at the INT32 rate (the epilogue's float
+    # operations run at twice it); and the first design's compare-all count
+    # beside it (one compare + one add per (query term, token) pair)
     n_bytes = sum(t.numel() * t.element_size() for t in args) + 2 * len(modes) * n_q * k * 4
+    ops_count = n_seg * l_d + len(modes) * n_q * n_seg
+    compare_all = 2 * n_q * l_q * n_seg * l_d
     bound_ms = 1e3 * max(ops_count / INT32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
     bound_by = "operations" if ops_count / INT32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
+    bound_compare_all_ms = 1e3 * compare_all / INT32_OPS_PER_S
+    # a serving block's shape on the same segment: 128 queries, one model
+    q128 = torch.as_tensor(synthetic.make_queries(corpus, n_queries=128, seed=2), device=dev)
+    m128, w128, ab128 = scoring.lexical_epilogues((scoring.get_scorer("ql_lm"),), q128, stats)
+    ms_128 = cuda_ms(lambda: lexical_scan.lexical_scan_topk_cuda(
+        q128, w128, ab128, d, dl, modes=m128, k=k, block_d=16_384, tile_d=16), reps=20, warmup=2)
     ctx["kernels"]["lexical_scan_topk"] = {
         "name": "lexical_scan_topk",
         "route": "cuda",
@@ -374,9 +413,12 @@ def phase_kernels(ctx) -> None:
     }
     emit("kernels.timing", kernel="lexical_scan_topk", shape="262144x128 docs, 64x4 queries, "
          "5 models, k 1000", ms=ms, plain_ms=plain_ms, plain_note="plain version: not a yardstick",
-         bound_ms=bound_ms, bound_by=bound_by, compare_ops=ops_count, bytes=n_bytes,
-         nvidia_smi=ctx["smi"])
-    del corpus, d, dl, q, w, ab, args, plain, kern
+         bound_ms=bound_ms, bound_by=bound_by, ops=ops_count, bytes=n_bytes,
+         bound_compare_all_ms=bound_compare_all_ms, compare_all_ops=compare_all,
+         ms_128_queries_one_model=ms_128,
+         geometry=lexical_scan.launch_geometry(len(modes), n_q, l_q, n_seg, l_d, k, 16_384, 16),
+         ptxas=_ptxas_of("lexical_scan"), nvidia_smi=ctx["smi"])
+    del corpus, d, dl, q, w, ab, args, plain, kern, q128, w128
     torch.cuda.empty_cache()
     _dense_kernels(ctx)
 
@@ -430,6 +472,7 @@ def _parity(name, kern, plain):
 
 
 def _dense_kernels(ctx) -> None:
+    import numpy as np
     import torch
 
     from repro_torch.kernels import ops, score_topk
@@ -448,6 +491,12 @@ def _dense_kernels(ctx) -> None:
         ("k_1000_small_corpus", 9, 3, 4096, 64, 1000, 512, f32, False, 1),
         ("integer_valued", 10, 40, 8192, 128, 300, 1024, f32, True, 1),
         ("integer_valued_bf16", 11, 24, 512, 64, 40, 128, bf16, True, 0),
+        # the serving buckets at k 1000, a block not a multiple of 8, bf16
+        ("bucket_8_k1000", 12, 8, 65_536, 256, 1000, 4096, f32, False, 1),
+        ("bucket_128_k1000", 13, 128, 65_536, 256, 1000, 4096, f32, False, 2),
+        ("n_q_13", 14, 13, 8192, 256, 100, 1024, f32, False, 0),
+        ("bf16_k1000", 15, 64, 65_536, 256, 1000, 4096, bf16, False, 0),
+        ("integer_bf16_bucket_128_k1000", 16, 128, 32_768, 256, 1000, 4096, bf16, True, 1),
     ]
     results = []
     for name, seed, n_q, n_d, dim, k, block_d, dtype, integer, n_zero in cases:
@@ -470,7 +519,26 @@ def _dense_kernels(ctx) -> None:
                                       torch.arange(min(k, n_d), dtype=torch.int32, device="cuda")):
             raise AssertionError(f"{name}: a zero query row does not rank ids 0, 1, 2, ...")
         results.append({"case": name, "max_abs_err": err, "bit_equal": integer})
-    emit("kernels.dense_edge", cases=results, nvidia_smi=ctx["smi"])
+    # most documents tie: 90% of the rows are one integer vector, so their
+    # scores are equal and only the ids order them; bit-equal, ids and all
+    g = np.random.default_rng(17)
+    qt = torch.tensor(g.integers(-3, 4, (64, 256)).astype(np.float32), device="cuda")
+    dt = torch.tensor(g.integers(-3, 4, (32_768, 256)).astype(np.float32), device="cuda")
+    dt[torch.tensor(g.random(32_768) < 0.9, device="cuda")] = dt[7].clone()
+    _compare("most_docs_tie", tuple(t + 0.0 if t.is_floating_point() else t
+                                    for t in ops.score_topk(qt, dt, k=1000, block_d=1024)),
+             tuple(t + 0.0 if t.is_floating_point() else t
+                   for t in score_topk.score_topk_ref(qt, dt, k=1000, block_d=1024)))
+    results.append({"case": "most_docs_tie", "max_abs_err": 0.0, "bit_equal": True})
+    # a query's scores and ids are the same bits in a bucket of 8, 64 or 128
+    qb, db = _rows(18, (128, 256), f32), _rows(19, (65_536, 256), f32)
+    full = ops.score_topk(qb, db, k=1000, block_d=4096)
+    for n in (8, 64):
+        _compare(f"bucket {n} against 128", ops.score_topk(qb[:n].contiguous(), db, k=1000,
+                                                           block_d=4096),
+                 (full[0][:n], full[1][:n]))
+    emit("kernels.dense_edge", cases=results, bucket_independent=[8, 64, 128],
+         nvidia_smi=ctx["smi"])
 
     # one full-width segment: chunk_size rows of the dense_scan shape, 64 queries, k 1000
     n_seg, dim, n_q, k = 16_384, 256, 64, 1000
@@ -497,13 +565,24 @@ def _dense_kernels(ctx) -> None:
                                      torch.cuda.get_device_properties(0).multi_processor_count)
     ms = cuda_ms(lambda: score_topk.score_topk_cuda(q, corpus, k=k, block_d=16_384),
                  reps=5, warmup=1)
+    q128 = _rows(25, (128, dim), f32)
+    ms_128 = cuda_ms(lambda: score_topk.score_topk_cuda(q128, corpus, k=k, block_d=16_384),
+                     reps=5, warmup=1)
     plain_ms = cuda_ms(lambda: score_topk.score_topk_ref(q, corpus, k=k, block_d=16_384),
                        reps=2, warmup=1)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the library yardstick must run in full float32 (allow_tf32 False)")
     library_ms = cuda_ms(lambda: torch.topk(q @ corpus.T, k), reps=3, warmup=1)
+    # least time at float32-level accuracy: the bytes, or three TF32
+    # products per multiply-add on the tensor cores; the CUDA cores' FP32
+    # pipe (one FMA per multiply-add, the earlier CUDA-core design's bound)
+    # beside it
     ops_count = 2 * n_q * n_d * dim
     n_bytes = (q.numel() + corpus.numel()) * 4 + n_q * k * 8
-    bound_ms = 1e3 * max(ops_count / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    bound_by = "operations" if ops_count / FP32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
+    bound_ms = 1e3 * max(3 * ops_count / TF32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    bound_by = "operations" if 3 * ops_count / TF32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S \
+        else "bytes"
+    bound_fp32_pipe_ms = 1e3 * max(ops_count / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
     ctx["kernels"]["score_topk"] = {
         "name": "score_topk",
         "route": "cuda",
@@ -521,9 +600,11 @@ def _dense_kernels(ctx) -> None:
          f"k {k}", geometry=geo, ms=ms, plain_ms=plain_ms,
          plain_note="plain version: not a yardstick", library_ms=library_ms,
          library_note="torch.topk(q @ d.T, k): two PyTorch calls, timed as a yardstick, "
-         "never used by the port", bound_ms=bound_ms, bound_by=bound_by,
-         fp32_ops=ops_count, bytes=n_bytes, nvidia_smi=ctx["smi"])
-    del corpus  # 16 GiB: the experiment phase runs as it ran before this phase grew
+         "never used by the port; float32 matmul with allow_tf32 False (the default)",
+         bound_ms=bound_ms, bound_by=bound_by, bound_fp32_pipe_ms=bound_fp32_pipe_ms,
+         ops=ops_count, tf32_ops=3 * ops_count, bytes=n_bytes, gb_per_s=n_bytes / ms * 1e-6,
+         ms_128_queries=ms_128, ptxas=_ptxas_of("score_topk"), nvidia_smi=ctx["smi"])
+    del corpus, q128  # 16 GiB: the experiment phase runs as it ran before this phase grew
     torch.cuda.empty_cache()
     _flash_kernels(ctx)
 

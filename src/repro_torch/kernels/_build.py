@@ -11,10 +11,11 @@ is imported: the CPU tests import every module.
          -Xcompiler -fPIC -Xptxas -v [per-source flags] -o lib<name>-<hash>.so <name>.cu
 
 Each source has its own flags (:func:`flags`), and they enter its
-library's hash. ``lexical_scan`` and ``score_topk`` build with
-``--fmad=false``: every product and sum rounds on its own, as their plain
-PyTorch versions do, which their bit-exact contracts rest on (a kernel that
-wants a fused multiply-add says so with ``__fmaf_rn``). The flash kernels,
+library's hash. ``lexical_scan`` builds with ``--fmad=false``: every product
+and sum of its epilogues rounds on its own, as its plain PyTorch version's
+do, which its bit-exact contract rests on. ``score_topk`` scores on the
+tensor cores and has no multiply and add for nvcc to contract (its TF32
+split is a subtraction alone), so it needs no such flag; the flash kernels,
 held to tolerances and not to bits, let nvcc contract multiplies and adds
 into FMAs. Fast math is never on.
 """
@@ -39,7 +40,7 @@ NVCC_FLAGS = (
 # flags of one source, after NVCC_FLAGS (none for a source not named here)
 SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
     "lexical_scan": ("--fmad=false",),
-    "score_topk": ("--fmad=false",),
+    "score_topk": (),
     "flash_attn": (),
     "flash_decode": (),
 }

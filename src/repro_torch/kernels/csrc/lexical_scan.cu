@@ -9,40 +9,36 @@
 // (score desc, id asc). Zero-length rows score -inf and never enter; empty
 // slots stay (-inf, -1).
 //
-// What bounds it on an H100. Per call the kernel must read the token matrix
-// once (n_d * L_d * 4 bytes: 128 MiB for a 262,144 x 128 segment, ~40 us at
-// 3.35 TB/s) and do n_q * L_q * n_d * L_d compare-and-adds on the CUDA cores
-// (64 * 4 * 262,144 * 128 = 8.6e9 per segment, 1.7e10 INT32 operations:
-// ~1.03 ms at 64 INT32 results per clock per SM x 132 SMs x 1.98 GHz). The
-// compares dominate: the bound is operations, not bytes.
+// What bounds it on an H100. The least work these inputs need: read the
+// token matrix and the lengths once (n_d * (L_d + 1) * 4 bytes: 129 MiB for a
+// 262,144 x 128 segment, ~40 us at 3.35 TB/s), look each token up once
+// against the block's query terms, and one epilogue and compare for each
+// (model, query, doc). The bytes bound it. (Comparing every query term with
+// every token would be 1.7e10 INT32 operations a segment, ~1.03 ms: looking
+// each token up once is what takes that work away.)
 //
-// Layout and what it re-reads. The TPU kernel carries its top-k state from
-// one grid step to the next; Hopper CTAs run in parallel and in no order, so
-// the work splits in two kernels:
-//   1. `lexical_scan_partial`, grid (n_q, n_splits), query index fastest: the
-//      CTAs of one doc split run together and read the same token tiles
-//      through L2, so HBM sees each token roughly once while L2 serves it
-//      n_q times. Each CTA walks its split in tiles of `tile_docs` rows:
-//      a tile is staged in shared memory by asynchronous copies (cp.async),
-//      one warp counts each row's query terms (a lane holds its share of the
-//      row in registers; one warp reduction per term, no bank conflicts as
-//      lanes read consecutive words), and every (model, doc) whose score beats that
-//      model's current k-th entry is appended to a candidate buffer. A full
-//      buffer is bitonic-sorted and bitonic-merged into the model's running
-//      top-k_pad state; the k-th entry is the next threshold. Dropping a
-//      candidate that is not ahead of the current k-th entry is exact: the
-//      state only improves, so such a candidate can never be in the final
-//      top k. Each CTA writes its sorted top k per model.
-//   2. `lexical_merge_partials`, grid (n_q, n_models): folds the n_splits
-//      partial lists with the same (score desc, id asc) bitonic merge.
-// The (score, id) order, the bitonic sort and the bitonic merge live in
-// topk_merge.cuh, shared with the dense kernel (score_topk.cu).
-// Both merges depend only on the values, so the result is the exact
-// lexicographic top k whatever n_splits, block_d or tile_docs are.
-//
-// Shared memory per CTA: n_models * (k_pad + cap) * 8 bytes of state and
-// candidates (80 KB for 5 models at k = 1000) plus the token tile; the
-// wrapper groups models so that one CTA fits in 227 KB.
+// Layout. One launch, one CTA per SM; a CTA takes every n_split-th tile of
+// `tile_docs` rows (so the CTAs scan the ids in order together) and holds
+// every (model, query) list of the call. Steps per tile:
+//   1. stage: the tile's tokens are one contiguous range of the token
+//      matrix, copied by 16-byte cp.async (4-byte copies at its unaligned
+//      ends) into one of two buffers, while the previous tile is counted.
+//      (Packed tiles would be decoded here, between staging and counting.)
+//   2. count: one warp per row; each lane tests its tokens against a
+//      65,536-bit map of the query terms (token & 0xffff), and a hit looks
+//      the token up in an open-addressing table of the distinct terms; the
+//      warp's count of that term goes up by one (shared-memory atomics). A
+//      token is looked at once, however many queries share its term.
+//   3. epilogue: the warp's lanes take the (model, query) lists in turn; each
+//      reads the counts of its query's terms and scores the row. A row that
+//      has none of the query's terms takes a fast path with the same bits:
+//      its per-term sum is fixed per list (precomputed with the same
+//      operations on tf = 0), so only the length prior and norm remain.
+//      The score is offered to the list's threshold (topk_merge.cuh).
+//   Before the next tile, buffers that one more tile could overflow are
+//   flushed into the CTA's own lists, and the CTAs prove a common threshold
+//   together (topk_merge.cuh); every `block_d` rows a CTA also flushes every
+//   non-empty buffer. A second kernel, grid (lists), merges each list.
 //
 // Float bits. Built with --fmad=false and without fast math: every product
 // and quotient rounds on its own, and logf / log1pf / sqrtf / '/' are the
@@ -50,301 +46,346 @@
 // the same order as the plain PyTorch version, which therefore agrees with
 // this kernel bit for bit on the card.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 #include "topk_merge.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kThreads = 512;  // 16 warps: the epilogue's float chains want the occupancy
+constexpr int kWarps = kThreads / 32;
+constexpr int kEmpty = static_cast<int>(0x80000000u);  // a free hash slot
+constexpr int kMapWords = 65536 / 32;
 
-// tf of each query term in one staged row, by one warp: lane j holds tokens
-// j, j + 32, ... (T of them) in registers; positions past L_d read as PAD,
-// which no query term equals (query pads were remapped to PAD - 1).
-template <int T>
-__device__ __forceinline__ void row_tf(const int* row, int l_d, const int* qs,
-                                       int l_q, int* out, int lane) {
-  int v[T];
-#pragma unroll
-  for (int j = 0; j < T; ++j) {
-    const int x = lane + 32 * j;
-    v[j] = x < l_d ? row[x] : -1;
-  }
-  for (int l = 0; l < l_q; ++l) {
-    const int term = qs[l];
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < T; ++j) c += (v[j] == term);
-    c = __reduce_add_sync(kFullMask, c);
-    if (lane == 0) out[l] = c;
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes16) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if (bytes16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
   }
 }
 
-// One model's epilogue on one document's tf, as `scoring.apply_epilogue`.
-__device__ __forceinline__ float score_doc(const int* tf, const float* w,
-                                           int l_q, float alpha, float beta,
-                                           int mode, int dlen) {
-  const float dlf = fmaxf(static_cast<float>(dlen), 1.0f);
-  const int kind = mode & 3;
-  const float norm = alpha + beta * static_cast<float>(dlen);
-  float s = 0.0f;
-  for (int l = 0; l < l_q; ++l) {
-    const float t = static_cast<float>(tf[l]);
-    float pt;
-    if (kind == 0) {
-      pt = log1pf((w[l] * t) / dlf);
-    } else if (kind == 1) {
-      pt = (w[l] * t) / (t + norm);
-    } else {
-      pt = w[l] * log1pf(t);
-    }
-    s = (l == 0) ? pt : s + pt;
+__device__ __forceinline__ unsigned hash_slot(int term, int log2h) {
+  return (static_cast<unsigned>(term) * 2654435761u) >> (32 - log2h);
+}
+
+// One term of one model's epilogue, as `scoring.apply_epilogue`. At tf 0
+// the same bits come without the division or the log: w * 0 is +-0 (or NaN
+// for an infinite w), and +-0 over a positive norm or a dlf >= 1 is itself,
+// as log1pf(+-0) is; only a NaN, or a norm that is not positive, takes the
+// general expression.
+__device__ __forceinline__ float term_score(int kind, float w, float t, float dlf, float norm) {
+  if (t == 0.0f) {
+    const float z = w * 0.0f;
+    if (kind == 0) return z == 0.0f ? z : log1pf(z / dlf);
+    if (kind == 1) return z == 0.0f && norm > 0.0f ? z : z / (t + norm);
+    return w * 0.0f;  // w * log1pf(0), log1pf(0) = +0
   }
-  if (mode & 4) s = s + logf(dlf);
-  if (mode & 8) s = s / sqrtf(dlf);
+  if (kind == 0) return log1pf((w * t) / dlf);
+  if (kind == 1) return (w * t) / (t + norm);
+  return w * log1pf(t);
+}
+
+// The length prior, rsqrt norm and zero-length rule after the per-term sum.
+__device__ __forceinline__ float finish(float s, int mode, int dlen, float log_dlf,
+                                       float sqrt_dlf) {
+  if (mode & 4) s = s + log_dlf;
+  if (mode & 8) s = s / sqrt_dlf;
   return dlen > 0 ? s : -CUDART_INF_F;
 }
 
 }  // namespace
 
 // Mode code per model: bits 0-1 = 0 ql | 1 bm25 | 2 tfidf, bit 2 = length
-// prior, bit 3 = rsqrt length norm.
-extern "C" __global__ void __launch_bounds__(kThreads)
-lexical_scan_partial(const int* __restrict__ q_safe,     // [n_q, l_q]
-                     const float* __restrict__ weights,  // [n_models, n_q, l_q]
-                     const float* __restrict__ ab,       // [n_models, 2]
-                     const int* __restrict__ modes,      // [n_models]
-                     const int* __restrict__ docs,       // [n_d, l_d]
-                     const int* __restrict__ lens,       // [n_d]
-                     float* __restrict__ part_s,  // [n_models, n_q, n_splits, k]
-                     int* __restrict__ part_i,
-                     int n_q, int l_q, int n_models, int n_d, int l_d, int k,
-                     int k_pad, int cap, int block_d, int tile_docs,
-                     int n_splits) {
+// prior, bit 3 = rsqrt length norm. Lists are (model, query), model-major.
+extern "C" __global__ void __launch_bounds__(kThreads, 1)
+lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
+                    const float* __restrict__ weights,  // [n_models, n_q, l_q]
+                    const float* __restrict__ ab,       // [n_models, 2]
+                    const int* __restrict__ modes,      // [n_models]
+                    const int* __restrict__ docs,       // [n_d, l_d]
+                    const int* __restrict__ lens,       // [n_d]
+                    topk::Lists L, int n_q, int l_q, int n_models, int n_d, int l_d,
+                    int tile_docs, int flush_rows, int log2h) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int q = blockIdx.x;
-  const int split = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int d_begin = split * block_d;
-  const int d_end = min(n_d, d_begin + block_d);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_slots = n_q * l_q;
+  const int n_lists = n_models * n_q;
+  const int hsize = 1 << log2h;
+  const int buf_ints = (tile_docs * l_d + 7) & ~3;  // a tile + 3 ints of alignment slack
 
-  float* st_s = reinterpret_cast<float*>(smem);  // [n_models, k_pad]
-  int* st_i = reinterpret_cast<int*>(st_s + n_models * k_pad);
-  float* cd_s = reinterpret_cast<float*>(st_i + n_models * k_pad);  // [n_models, cap]
-  int* cd_i = reinterpret_cast<int*>(cd_s + n_models * cap);
-  int* tok = cd_i + n_models * cap;  // [tile_docs, l_d]
-  int* tf = tok + tile_docs * l_d;   // [tile_docs, l_q]
-  int* dl = tf + tile_docs * l_q;         // [tile_docs]
-  int* qs = dl + tile_docs;               // [l_q]
-  float* w = reinterpret_cast<float*>(qs + l_q);  // [n_models, l_q]
-  float* alpha = w + n_models * l_q;
+  int* ring = reinterpret_cast<int*>(smem);           // [2][buf_ints]
+  unsigned* map = reinterpret_cast<unsigned*>(ring + 2 * buf_ints);  // [kMapWords]
+  int* hkey = reinterpret_cast<int*>(map + kMapWords);  // [hsize]
+  int* hval = hkey + hsize;                           // [hsize]: the term's index
+  int* slot_term = hval + hsize;                      // [n_slots]
+  const int qwords = (n_q + 31) / 32;
+  unsigned* tmask = reinterpret_cast<unsigned*>(slot_term + n_slots);  // [n_slots][qwords]
+  unsigned* qmask = tmask + n_slots * qwords;         // [kWarps][qwords]: queries a row matches
+  int* wcnt = reinterpret_cast<int*>(qmask + kWarps * qwords);  // [kWarps][n_slots]
+  float* w = reinterpret_cast<float*>(wcnt + kWarps * n_slots);  // [n_models, n_slots]
+  float* zsum = w + n_models * n_slots;               // [n_lists]: the per-term sum at tf 0
+  float* alpha = zsum + n_lists;
   float* beta = alpha + n_models;
   int* mode = reinterpret_cast<int*>(beta + n_models);
-  float* thr_s = reinterpret_cast<float*>(mode + n_models);
-  int* thr_i = reinterpret_cast<int*>(thr_s + n_models);
-  int* cnt = thr_i + n_models;
+  float* ts = reinterpret_cast<float*>(mode + n_models);  // [n_lists]
+  int* ti = reinterpret_cast<int*>(ts + n_lists);
+  int* cnt = ti + n_lists;
+  int* len = cnt + n_lists;
+  int* n_terms = len + n_lists;
+  int* need = n_terms + 1;  // a buffer may overflow in the next tile: flush first
+  int sc = 1;
+  while (sc < L.cap) sc <<= 1;
+  unsigned long long* rkey = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<uintptr_t>(n_terms + 2) + 7 & ~static_cast<uintptr_t>(7));
+  unsigned long long* kkey = rkey + n_lists;
+  unsigned long long* scratch = kkey + n_lists;
+  unsigned long long* sk = scratch + warp * sc;
+  float* ss = reinterpret_cast<float*>(scratch + kWarps * sc) + warp * sc;
+  const topk::Local loc{ts, ti, cnt, len, rkey, kkey};
+  const size_t cb_base = static_cast<size_t>(blockIdx.x) * n_lists * L.cap;
 
-  for (int t = tid; t < n_models * k_pad; t += blockDim.x) {
-    st_s[t] = -CUDART_INF_F;
-    st_i[t] = -1;
-  }
-  for (int t = tid; t < l_q; t += blockDim.x) qs[t] = q_safe[q * l_q + t];
-  for (int t = tid; t < n_models * l_q; t += blockDim.x) {
-    const int m = t / l_q, l = t % l_q;
-    w[t] = weights[(static_cast<long long>(m) * n_q + q) * l_q + l];
-  }
-  for (int m = tid; m < n_models; m += blockDim.x) {
+  // the query terms: a bitmap, a hash table of the distinct terms
+  for (int i = tid; i < kMapWords; i += kThreads) map[i] = 0;
+  for (int i = tid; i < hsize; i += kThreads) hkey[i] = kEmpty;
+  for (int i = tid; i < kWarps * n_slots; i += kThreads) wcnt[i] = 0;
+  for (int i = tid; i < (n_slots + kWarps) * qwords; i += kThreads) tmask[i] = 0;
+  for (int i = tid; i < n_models * n_slots; i += kThreads) w[i] = weights[i];
+  for (int m = tid; m < n_models; m += kThreads) {
     alpha[m] = ab[2 * m];
     beta[m] = ab[2 * m + 1];
     mode[m] = modes[m];
-    thr_s[m] = -CUDART_INF_F;
-    thr_i[m] = -1;
-    cnt[m] = 0;
+  }
+  for (int l = tid; l < n_lists; l += kThreads) {
+    topk::set_local(loc, l, __ldcg(&L.thr[l]));
+    cnt[l] = 0;
+    len[l] = 0;
+    rkey[l] = kkey[l] = 0;
+  }
+  if (tid == 0) {
+    *n_terms = 0;
+    *need = 0;
+  }
+  __syncthreads();
+  for (int s = tid; s < n_slots; s += kThreads) {
+    const int term = q_safe[s];
+    unsigned h = hash_slot(term, log2h);
+    for (;;) {
+      const int prev = atomicCAS(&hkey[h], kEmpty, term);
+      if (prev == kEmpty || prev == term) break;
+      h = (h + 1) & (hsize - 1);
+    }
+    atomicOr(&map[(term & 0xffff) >> 5], 1u << (term & 31));
+  }
+  __syncthreads();
+  for (int h = tid; h < hsize; h += kThreads) {
+    if (hkey[h] != kEmpty) hval[h] = atomicAdd(n_terms, 1);
+  }
+  __syncthreads();
+  auto lookup = [&](int term) -> int {
+    unsigned h = hash_slot(term, log2h);
+    for (;;) {
+      const int key = hkey[h];
+      if (key == term) return hval[h];
+      if (key == kEmpty) return -1;
+      h = (h + 1) & (hsize - 1);
+    }
+  };
+  for (int s = tid; s < n_slots; s += kThreads) {
+    const int t = lookup(q_safe[s]);
+    const int qi = s / l_q;
+    slot_term[s] = t;
+    atomicOr(&tmask[t * qwords + qi / 32], 1u << (qi & 31));
+  }
+  // each list's per-term sum at tf = 0: the same operations as the full
+  // path, none of which depends on the row (ql: (w * 0) / dlf is w * 0 for
+  // any dlf >= 1; bm25: (w * 0) / (0 + norm) is w * 0 for any norm > 0, and
+  // the fast path is taken only then; tfidf: w * log1pf(0))
+  for (int p = tid; p < n_lists; p += kThreads) {
+    const int m = p / n_q, qi = p - m * n_q;
+    const int kind = mode[m] & 3;
+    float s = 0.0f;
+    for (int l = 0; l < l_q; ++l) {
+      const float pt = term_score(kind, w[m * n_slots + qi * l_q + l], 0.0f, 1.0f, 1.0f);
+      s = (l == 0) ? pt : s + pt;
+    }
+    zsum[p] = s;
   }
   __syncthreads();
 
-  // sort model m's candidates and merge them into its state
-  auto flush = [&](int m) {
-    const int n = cnt[m];
-    int width = k_pad;
-    while (width < n) width <<= 1;  // <= cap: cap is a power of two >= n
-    float* cs = cd_s + m * cap;
-    int* ci = cd_i + m * cap;
-    for (int t = n + tid; t < width; t += blockDim.x) {
-      cs[t] = -CUDART_INF_F;
-      ci[t] = -1;
+  // the CTAs take the tiles in turn (CTA c: tiles c, c + n_split, ...), so
+  // together they scan the ids in order: among equal scores the lowest ids
+  // rank first, and a bound found early holds for every later tile
+  const int n_tiles = ((n_d + tile_docs - 1) / tile_docs - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto tile_start = [&](int t) { return (blockIdx.x + t * gridDim.x) * tile_docs; };
+  // stage tile `t` into buffer t & 1: its tokens are ints [g0, g0 + n) of the
+  // matrix, placed `mis` ints into the buffer, their address's offset from a
+  // 16-byte boundary, so 16-byte copies align on both sides
+  auto misalign = [&](size_t g0) {
+    return static_cast<int>((reinterpret_cast<uintptr_t>(docs + g0) >> 2) & 3);
+  };
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      const int d0 = tile_start(t);
+      const size_t g0 = static_cast<size_t>(d0) * l_d;
+      const int n = min(tile_docs, n_d - d0) * l_d;
+      const int mis = misalign(g0);
+      int* dst = ring + (t & 1) * buf_ints + mis;
+      const int head = min(n, (4 - mis) & 3);
+      const int body = (n - head) & ~3;
+      for (int i = tid; i < head; i += kThreads) cp_async(dst + i, docs + g0 + i, 0);
+      for (int i = tid; i < body / 4; i += kThreads) {
+        cp_async(dst + head + 4 * i, docs + g0 + head + 4 * i, 1);
+      }
+      for (int i = head + body + tid; i < n; i += kThreads) cp_async(dst + i, docs + g0 + i, 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // runs between barriers, when an offer raised `need`, every `flush_rows`
+  // rows (flushing every non-empty buffer) and at the end; then raises each
+  // threshold to the bound the CTAs proved
+  auto flush = [&](bool all) {
+    __syncthreads();
+    if (tid == 0) *need = 0;
+    const int start = (blockIdx.x * kWarps) % n_lists;
+    for (int j = warp; j < n_lists; j += kWarps) {
+      const int l = (start + j) % n_lists;
+      const int c = cnt[l];
+      // a list's first flush comes after one tile, so that the CTA's bound
+      // is published early; then when one more tile could overflow it
+      if (all ? c > 0 : c + tile_docs > L.cap || (c > 0 && len[l] == 0)) {
+        topk::warp_flush(L, loc, cb_base, blockIdx.x, blockIdx.x, gridDim.x, l, l, sk, ss);
+      }
     }
     __syncthreads();
-    topk::bitonic_sort(cs, ci, width);
-    topk::merge_into(st_s + m * k_pad, st_i + m * k_pad, cs, ci, k_pad);
-    if (tid == 0) {
-      cnt[m] = 0;
-      thr_s[m] = st_s[m * k_pad + k - 1];
-      thr_i[m] = st_i[m * k_pad + k - 1];
-    }
+    for (int l = tid; l < n_lists; l += kThreads) topk::refresh(L, loc, l, l);
     __syncthreads();
   };
 
-  for (int d0 = d_begin; d0 < d_end; d0 += tile_docs) {
-    const int nt = min(tile_docs, d_end - d0);
-    for (int m = 0; m < n_models; ++m) {
-      if (cnt[m] + tile_docs > cap) flush(m);
-    }
-    // stage the tile: one warp per row, lanes along the row (coalesced);
-    // asynchronous copies, so a thread's loads are all in flight at once
-    for (int r = warp; r < nt; r += n_warps) {
-      const int* row = docs + static_cast<long long>(d0 + r) * l_d;
-      for (int c = lane; c < l_d; c += 32) {
-        __pipeline_memcpy_async(tok + r * l_d + c, row + c, sizeof(int));
-      }
-    }
-    __pipeline_commit();
-    for (int t = tid; t < nt; t += blockDim.x) dl[t] = lens[d0 + t];
-    __pipeline_wait_prior(0);
+  int* wc = wcnt + warp * n_slots;
+  unsigned* qm = qmask + warp * qwords;
+  int since_flush = 0;
+  issue(0);
+  for (int t = 0; t < n_tiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-
-    // tf: one warp per row; each lane keeps its share of the row in
-    // registers, and one warp reduction per query term gives that term's count
-    for (int r = warp; r < nt; r += n_warps) {
-      const int* row = tok + r * l_d;
-      int* out = tf + r * l_q;
-      if (l_d <= 32) {
-        row_tf<1>(row, l_d, qs, l_q, out, lane);
-      } else if (l_d <= 64) {
-        row_tf<2>(row, l_d, qs, l_q, out, lane);
-      } else if (l_d <= 128) {
-        row_tf<4>(row, l_d, qs, l_q, out, lane);
-      } else if (l_d <= 256) {
-        row_tf<8>(row, l_d, qs, l_q, out, lane);
-      } else {
-        for (int l = 0; l < l_q; ++l) {
-          int c = 0;
-          for (int x = lane; x < l_d; x += 32) c += (row[x] == qs[l]);
-          c = __reduce_add_sync(kFullMask, c);
-          if (lane == 0) out[l] = c;
+    // the last tile's offers are all in (the barrier above)
+    const bool all = since_flush >= flush_rows;
+    if (all) since_flush = 0;
+    if (all || *need || (t & 3) == 0 || t == 1) flush(all);
+    issue(t + 1);  // the next tile lands while this one is counted
+    const int d0 = tile_start(t);
+    const int nt = min(tile_docs, n_d - d0);
+    const size_t g0 = static_cast<size_t>(d0) * l_d;
+    const int* tile = ring + (t & 1) * buf_ints + misalign(g0);
+    for (int r = warp; r < nt; r += kWarps) {
+      const int* row = tile + r * l_d;
+      // count: each token once against the query terms
+      for (int x = lane; x < l_d; x += 32) {
+        const int tok = row[x];
+        if ((map[(tok & 0xffff) >> 5] >> (tok & 31)) & 1u) {
+          const int idx = lookup(tok);
+          if (idx >= 0) {
+            if (atomicAdd(&wc[idx], 1) == 0) {  // the term's first hit: mark its queries
+              for (int j = 0; j < qwords; ++j) {
+                const unsigned bits = tmask[idx * qwords + j];
+                if (bits) atomicOr(&qm[j], bits);
+              }
+            }
+          }
         }
       }
-    }
-    __syncthreads();
-
-    // epilogue + threshold filter; tile_docs % 32 == 0 keeps m warp-uniform
-    for (int p = tid; p < n_models * tile_docs; p += blockDim.x) {
-      const int m = p / tile_docs;
-      const int doc = p % tile_docs;
-      const int gid = d0 + doc;
-      float s = -CUDART_INF_F;
-      bool take = false;
-      if (doc < nt) {
-        s = score_doc(tf + doc * l_q, w + m * l_q, l_q, alpha[m], beta[m],
-                      mode[m], dl[doc]);
-        // strictly ahead of the current k-th entry (ids are distinct)
-        take = s > thr_s[m] || (s == thr_s[m] && gid < thr_i[m]);
-      }
-      const unsigned mask = __ballot_sync(kFullMask, take);
-      if (mask) {
-        const int leader = __ffs(mask) - 1;
-        int base = 0;
-        if (lane == leader) base = atomicAdd(&cnt[m], __popc(mask));
-        base = __shfl_sync(kFullMask, base, leader);
-        if (take) {
-          const int pos = base + __popc(mask & ((1u << lane) - 1u));
-          cd_s[m * cap + pos] = s;
-          cd_i[m * cap + pos] = gid;
+      __syncwarp();
+      const int gid = d0 + r;
+      const int dlen = __ldg(lens + gid);
+      const float dlf = fmaxf(static_cast<float>(dlen), 1.0f);
+      const float log_dlf = logf(dlf), sqrt_dlf = sqrtf(dlf);
+      // epilogue: lanes over the queries, model by model; a query none of
+      // whose terms is in the row takes the fast path
+      for (int m = 0; m < n_models; ++m) {
+        const int md = mode[m], kind = md & 3;
+        const float norm = alpha[m] + beta[m] * static_cast<float>(dlen);
+        const bool zero_ok = kind != 1 || norm > 0.0f;
+        for (int qi = lane; qi < n_q; qi += 32) {
+          const int p = m * n_q + qi;
+          float s;
+          if (zero_ok && !((qm[qi >> 5] >> (qi & 31)) & 1u)) {
+            s = zsum[p];
+          } else {
+            const int* st = slot_term + qi * l_q;
+            const float* wq = w + m * n_slots + qi * l_q;
+            s = 0.0f;
+            for (int l = 0; l < l_q; ++l) {
+              const float tf = static_cast<float>(wc[st[l]]);
+              const float pt = term_score(kind, wq[l], tf, dlf, norm);
+              s = (l == 0) ? pt : s + pt;
+            }
+          }
+          if (topk::offer(L, loc, cb_base, p, finish(s, md, dlen, log_dlf, sqrt_dlf), gid) +
+                  tile_docs > L.cap) {
+            *need = 1;
+          }
         }
       }
+      __syncwarp();
+      for (int i = lane; i < *n_terms; i += 32) wc[i] = 0;
+      for (int j = lane; j < qwords; j += 32) qm[j] = 0;
+      __syncwarp();
     }
-    __syncthreads();
+    since_flush += tile_docs;
   }
-  for (int m = 0; m < n_models; ++m) {
-    if (cnt[m] > 0) flush(m);
-  }
-  for (int t = tid; t < n_models * k; t += blockDim.x) {
-    const int m = t / k, i = t % k;
-    const long long o =
-        ((static_cast<long long>(m) * n_q + q) * n_splits + split) * k + i;
-    part_s[o] = st_s[m * k_pad + i];
-    part_i[o] = st_i[m * k_pad + i];
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  flush(true);
+  for (int l = tid; l < n_lists; l += kThreads) {
+    L.st_len[static_cast<size_t>(blockIdx.x) * n_lists + l] = len[l];
   }
 }
 
+// The final top k of each list from the CTAs' lists: grid (n_lists).
 extern "C" __global__ void __launch_bounds__(kThreads)
-lexical_merge_partials(const float* __restrict__ part_s,  // [G, n_q, n_splits, k]
-                       const int* __restrict__ part_i,
-                       float* __restrict__ out_s,  // [G, n_q, k]
-                       int* __restrict__ out_i,
-                       int n_q, int n_splits, int k, int k_pad) {
+lexical_scan_merge(topk::Lists L, float* __restrict__ out_s, int* __restrict__ out_i,
+                   int n_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* st_s = reinterpret_cast<float*>(smem);
-  int* st_i = reinterpret_cast<int*>(st_s + k_pad);
-  float* b_s = reinterpret_cast<float*>(st_i + k_pad);
-  int* b_i = reinterpret_cast<int*>(b_s + k_pad);
-  const int q = blockIdx.x;
-  const int m = blockIdx.y;
-  const long long row = static_cast<long long>(m) * n_q + q;
-  const float* ps = part_s + row * n_splits * k;
-  const int* pi = part_i + row * n_splits * k;
-  for (int t = threadIdx.x; t < k_pad; t += blockDim.x) {
-    st_s[t] = t < k ? ps[t] : -CUDART_INF_F;
-    st_i[t] = t < k ? pi[t] : -1;
-  }
-  for (int sp = 1; sp < n_splits; ++sp) {
-    for (int t = threadIdx.x; t < k_pad; t += blockDim.x) {
-      b_s[t] = t < k ? ps[sp * k + t] : -CUDART_INF_F;
-      b_i[t] = t < k ? pi[sp * k + t] : -1;
-    }
-    __syncthreads();
-    topk::merge_into(st_s, st_i, b_s, b_i, k_pad);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < k; t += blockDim.x) {
-    out_s[row * k + t] = st_s[t];
-    out_i[row * k + t] = st_i[t];
-  }
+  const int l = blockIdx.x;
+  topk::merge_lists(L, l, l, 0, n_split, out_s + static_cast<size_t>(l) * L.k,
+                    out_i + static_cast<size_t>(l) * L.k, smem);
 }
 
-// Plain C entry points for ctypes. Each returns cudaGetLastError() after its
-// launch; the Python wrapper raises when that is not cudaSuccess.
-extern "C" int lexical_scan_partial_launch(
+// Plain C entry point for ctypes: the scan, then the merge. Returns
+// cudaGetLastError() after the launches (the Python wrapper raises when that
+// is not cudaSuccess).
+extern "C" int lexical_scan_launch(
     const void* q_safe, const void* weights, const void* ab, const void* modes,
-    const void* docs, const void* lens, void* part_s, void* part_i, int n_q,
-    int l_q, int n_models, int n_d, int l_d, int k, int k_pad, int cap,
-    int block_d, int tile_docs, int n_splits, int smem_bytes, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      lexical_scan_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+    const void* docs, const void* lens, void* st_s, void* st_i, void* st_len, void* pub,
+    void* thr, void* cb_s, void* cb_i, void* out_s, void* out_i, int n_q, int l_q,
+    int n_models, int n_d, int l_d, int k, int k_pad, int cap, int n_splits,
+    int tile_docs, int flush_rows, int log2h, int smem_bytes, int merge_smem_bytes,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(lexical_scan_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n_q, n_splits);
-  lexical_scan_partial<<<grid, kThreads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const int n_lists = n_models * n_q;
+  const topk::Lists L{static_cast<float*>(st_s), static_cast<int*>(st_i),
+                      static_cast<int*>(st_len), static_cast<unsigned long long*>(pub),
+                      static_cast<unsigned long long*>(thr), static_cast<float*>(cb_s),
+                      static_cast<int*>(cb_i), k, k_pad, cap, n_lists,
+                      (k + n_splits - 1) / n_splits};
+  lexical_scan_kernel<<<n_splits, kThreads, smem_bytes, s>>>(
       static_cast<const int*>(q_safe), static_cast<const float*>(weights),
       static_cast<const float*>(ab), static_cast<const int*>(modes),
-      static_cast<const int*>(docs), static_cast<const int*>(lens),
-      static_cast<float*>(part_s), static_cast<int*>(part_i), n_q, l_q,
-      n_models, n_d, l_d, k, k_pad, cap, block_d, tile_docs, n_splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int lexical_merge_partials_launch(const void* part_s,
-                                             const void* part_i, void* out_s,
-                                             void* out_i, int n_q, int n_models,
-                                             int n_splits, int k, int k_pad,
-                                             int smem_bytes, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      lexical_merge_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      static_cast<const int*>(docs), static_cast<const int*>(lens), L, n_q, l_q, n_models,
+      n_d, l_d, tile_docs, flush_rows, log2h);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n_q, n_models);
-  lexical_merge_partials<<<grid, kThreads, smem_bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), n_q, n_splits, k,
-      k_pad);
+  e = cudaFuncSetAttribute(lexical_scan_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           merge_smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  lexical_scan_merge<<<n_lists, kThreads, merge_smem_bytes, s>>>(
+      L, static_cast<float*>(out_s), static_cast<int*>(out_i), n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 

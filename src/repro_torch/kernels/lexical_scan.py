@@ -14,9 +14,12 @@ model's epilogue (`scoring.apply_epilogue`) on that shared tf, and each
   It runs wherever its tensors live.
 * :func:`lexical_scan_topk_cuda` launches the hand-written kernel
   (``csrc/lexical_scan.cu``) on CUDA tensors. It takes the same arguments;
-  ``block_d`` is the doc range one CTA scans and ``tile_d`` (rounded up to a
-  whole warp) the rows it stages per step. Neither changes a bit of the
-  result.
+  a CTA stages each tile of ``tile_d`` rows (rounded up to a whole warp)
+  once for every (model, query) of the call, looks each token up once in a
+  table of the query terms, and keeps its own running lists under a
+  threshold the CTAs prove together; a second kernel merges them.
+  ``block_d`` is how many rows a CTA scans between flushes of all its
+  candidate buffers. Neither changes a bit of the result.
 
 The public entry point is `repro_torch.kernels.ops.lexical_scan_topk`, which
 picks between the two by the tensors' device and counts launches.
@@ -38,12 +41,18 @@ from repro_torch.core.scoring import (
 )
 from repro_torch.core.topk import sort_key
 from repro_torch.kernels import _build
-from repro_torch.kernels.score_topk import _pad_desc, bitonic_merge_desc
+from repro_torch.kernels.score_topk import (
+    _c_args,
+    _pad_desc,
+    bitonic_merge_desc,
+    list_states,
+    merge_smem_bytes,
+)
 
 _MODE_KIND = {"ql": 0, "bm25": 1, "tfidf": 2}
 # one CTA's shared memory on sm_90 (227 KB)
 SMEM_LIMIT = 232448
-MAX_K = 8192  # k_pad * 8 B * 2 lists per model must leave room in one CTA
+MAX_K = 8192  # the states live in device memory; k only sets their length
 
 
 def mode_codes(modes: tuple[EpilogueMode, ...]) -> list[int]:
@@ -120,49 +129,74 @@ def lexical_scan_topk_ref(
     return state_s.contiguous(), state_i.contiguous()
 
 
-def _smem_bytes(n_models: int, k_pad: int, cap: int, tile_docs: int, l_d: int, l_q: int) -> int:
+WARPS = 16  # the kernel's CTA: 512 threads
+MAP_BYTES = 65536 // 8  # the query terms' bitmap
+
+
+def _smem_bytes(n_models: int, n_q: int, l_q: int, tile_docs: int, l_d: int, cap: int) -> int:
+    slots, lists = n_q * l_q, n_models * n_q
+    buf_ints = (tile_docs * l_d + 7) & ~3
+    qwords = -(-n_q // 32)
     words = (
-        2 * n_models * k_pad + 2 * n_models * cap  # state + candidate lists
-        + tile_docs * l_d + tile_docs * l_q + tile_docs  # tile, tf, lengths
-        + l_q + n_models * l_q + 6 * n_models  # query, weights, scalars
+        2 * buf_ints  # the staging ring
+        + 2 * _hash_size(slots) + slots + WARPS * slots  # term table, slot terms, counts
+        + (slots + WARPS) * qwords  # each term's queries, each warp's row's queries
+        + n_models * slots + lists + 3 * n_models  # weights, tf-0 sums, alpha/beta/mode
+        + 4 * lists + 2  # thresholds (score, id), buffer counts, list lengths, 2 flags
     )
-    return 4 * words
+    # + each list's r-th and k-th keys (8-byte aligned), each warp's flush scratch
+    return MAP_BYTES + 4 * words + 8 + 16 * lists + WARPS * next_pow2(cap) * 12
 
 
-def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d) -> dict:
+def _hash_size(slots: int) -> int:
+    return max(32, next_pow2(2 * slots))
+
+
+def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int = 132) -> dict:
     """The kernel's launch shape for these sizes, or ValueError when it
-    cannot take them."""
+    cannot take them.
+
+    One CTA per SM (``n_splits`` of them), taking the tiles in turn; a tile
+    is ``tile_d`` rows rounded up to a whole warp. Queries go in as few groups
+    as fit a CTA's shared memory (one, for 128 queries of 4 terms); a CTA
+    holds every (model, query) list of its group. ``block_d`` is how many
+    rows a CTA scans between flushes of all its buffers.
+    """
     if k > MAX_K:
         raise ValueError(f"the lexical scan kernel keeps at most k={MAX_K}, got {k}")
-    k_pad = next_pow2(k)
     tile_docs = -(-tile_d // 32) * 32
-    cap = next_pow2(max(k_pad, 2 * tile_docs))
-    n_splits = -(-n_d // block_d)
-    if n_splits > 65535:
-        raise ValueError(f"{n_splits} doc splits exceed the grid; raise block_d")
-    group = n_models
-    while group > 0 and _smem_bytes(group, k_pad, cap, tile_docs, l_d, l_q) > SMEM_LIMIT:
-        group -= 1
-    if group == 0:
-        raise ValueError(
-            f"one model at k={k}, L_d={l_d}, tile_d={tile_d} does not fit a CTA's "
-            "shared memory"
-        )
+    if n_d + tile_docs * n_sms >= 2**31:  # ids and tile starts stay int32
+        raise ValueError(f"{n_d} docs exceed the kernel's int32 doc ids")
+    cap = 4 * tile_docs  # a buffer is flushed when one more tile could overflow it
+    n_splits = min(n_sms, -(-n_d // tile_docs))
+    n_groups = 1
+    group = n_q
+    while _smem_bytes(n_models, group, l_q, tile_docs, l_d, cap) > SMEM_LIMIT:
+        if group == 1:
+            raise ValueError(
+                f"one query at L_q={l_q}, L_d={l_d}, tile_d={tile_d} with {n_models} models "
+                "does not fit a CTA's shared memory"
+            )
+        n_groups += 1
+        group = -(-n_q // n_groups)
     return {
-        "k_pad": k_pad, "tile_docs": tile_docs, "cap": cap, "n_splits": n_splits,
-        "group": group, "smem": _smem_bytes(group, k_pad, cap, tile_docs, l_d, l_q),
-        "merge_smem": 4 * 4 * k_pad,
+        "k_pad": next_pow2(k), "tile_docs": tile_docs, "cap": cap, "n_splits": n_splits, "group": group, "n_groups": n_groups, "flush_rows": block_d,
+        "log2h": _hash_size(group * l_q).bit_length() - 1,
+        "smem": _smem_bytes(n_models, group, l_q, tile_docs, l_d, cap),
+        "merge_smem": merge_smem_bytes(next_pow2(k), n_splits),
     }
+
+
+# the C entry point's parameters, in order: p a pointer, i an int
+LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 14 + "p"
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lexical_scan")
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lexical_scan_partial_launch.argtypes = [p] * 8 + [i] * 12 + [p]
-        lib.lexical_scan_partial_launch.restype = i
-        lib.lexical_merge_partials_launch.argtypes = [p] * 4 + [i] * 6 + [p]
-        lib.lexical_merge_partials_launch.restype = i
+        lib.lexical_scan_launch.argtypes = _c_args(LAUNCH_ARGS)
+        lib.lexical_scan_launch.restype = i
         lib.lexical_scan_error_string.argtypes = [i]
         lib.lexical_scan_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -185,30 +219,35 @@ def lexical_scan_topk_cuda(
     n_d, l_d = d_tokens.shape
     n_models = weights.shape[0]
     dev = d_tokens.device
-    geo = launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d)
+    geo = launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib()
     q_safe = safe_queries(q_tokens).contiguous()
     codes = torch.tensor(mode_codes(modes), dtype=torch.int32, device=dev)
     out_s = torch.empty((n_models, n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_models, n_q, k), dtype=torch.int32, device=dev)
-    group = geo["group"]
-    part_s = torch.empty((group, n_q, geo["n_splits"], k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((group, n_q, geo["n_splits"], k), dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    for g0 in range(0, n_models, group):
-        g = min(group, n_models - g0)
-        rc = lib.lexical_scan_partial_launch(
-            q_safe.data_ptr(), weights[g0 : g0 + g].data_ptr(), ab[g0 : g0 + g].data_ptr(),
-            codes[g0 : g0 + g].data_ptr(), d_tokens.data_ptr(), d_len.data_ptr(),
-            part_s.data_ptr(), part_i.data_ptr(), n_q, l_q, g, n_d, l_d, k,
-            geo["k_pad"], geo["cap"], block_d, geo["tile_docs"], geo["n_splits"],
-            _smem_bytes(g, geo["k_pad"], geo["cap"], geo["tile_docs"], l_d, l_q), stream,
-        )
-        _raise_on(lib, rc, "lexical_scan_partial launch")
-        rc = lib.lexical_merge_partials_launch(
-            part_s.data_ptr(), part_i.data_ptr(), out_s[g0 : g0 + g].data_ptr(),
-            out_i[g0 : g0 + g].data_ptr(), n_q, g, geo["n_splits"], k, geo["k_pad"],
+    for q0 in range(0, n_q, geo["group"]):
+        g = min(geo["group"], n_q - q0)
+        q_g = q_safe[q0 : q0 + g].contiguous()
+        w_g = weights[:, q0 : q0 + g].contiguous()
+        state = list_states(n_models * g, geo["k_pad"], geo["n_splits"], n_models * g,
+                            geo["n_splits"], geo["cap"], dev)
+        # one group writes its queries' rows of every model in place, else a copy
+        whole = g == n_q
+        o_s = out_s if whole else torch.empty((n_models, g, k), dtype=torch.float32, device=dev)
+        o_i = out_i if whole else torch.empty((n_models, g, k), dtype=torch.int32, device=dev)
+        rc = lib.lexical_scan_launch(
+            q_g.data_ptr(), w_g.data_ptr(), ab.data_ptr(), codes.data_ptr(),
+            d_tokens.data_ptr(), d_len.data_ptr(), *(t.data_ptr() for t in state),
+            o_s.data_ptr(), o_i.data_ptr(), g, l_q, n_models, n_d, l_d, k, geo["k_pad"],
+            geo["cap"], geo["n_splits"], geo["tile_docs"],
+            geo["flush_rows"], geo["log2h"],
+            _smem_bytes(n_models, g, l_q, geo["tile_docs"], l_d, geo["cap"]),
             geo["merge_smem"], stream,
         )
-        _raise_on(lib, rc, "lexical_merge_partials launch")
+        _raise_on(lib, rc, "lexical_scan launch")
+        if not whole:
+            out_s[:, q0 : q0 + g] = o_s
+            out_i[:, q0 : q0 + g] = o_i
     return out_s, out_i

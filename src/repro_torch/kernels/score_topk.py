@@ -12,10 +12,17 @@ in which the product of two bfloat16 values is exact).
   block's top k by a stable descending sort, and :func:`bitonic_merge_desc`
   into the running state. It runs wherever its tensors live.
 * :func:`score_topk_cuda` launches the hand-written kernel
-  (``csrc/score_topk.cu``) on CUDA tensors. It sums each score in another
-  order than the matrix product, so the two agree to the reference's 1e-5
-  (and to the bit on integer-valued inputs). ``block_d`` only sets the
-  granularity of the kernel's doc splits: it changes no bit of the result.
+  (``csrc/score_topk.cu``) on CUDA tensors: scores on the tensor cores (three
+  TF32 products of a hi/lo split for float32 rows, :func:`tf32_split`; one
+  bfloat16 product for bfloat16 rows), one pass over the corpus for up to
+  128 queries, each CTA's running lists filtered by a threshold the CTAs
+  prove together (:func:`pack_key`) and merged by a second kernel
+  (:func:`list_states`). It sums each score in another order than the
+  matrix product, so the two agree to the reference's 1e-5, and to the bit
+  wherever every product and partial sum is exact (integer-valued inputs).
+  ``block_d`` only sets the granularity of the kernel's doc splits, and a
+  query's result is the same in any block of queries: neither changes a
+  bit of it.
 
 The module also holds the k-bounded bitonic merge of two (score, id) lists
 (:func:`bitonic_merge_desc`, :func:`_pad_desc`), which `topk.merge_lex`,
@@ -35,12 +42,12 @@ from repro_torch.core.topk import sort_key
 from repro_torch.kernels import _build
 
 THREADS = 256  # one CTA of the kernel
+WARPS = THREADS // 32
 SMEM_LIMIT = 232448  # one CTA's shared memory on sm_90 (227 KB)
-MAX_K = 8192  # one query's candidates and the merge's state (k_pad * 16 B) fit a CTA
-QUERIES_PER_THREAD = 8  # the kernel's kQ
-ROWS_PER_THREAD = 2  # the kernel's kRows
+MAX_K = 8192  # the states live in device memory; k only sets their length
 STAGE_BYTES = 128  # the kernel's kStageBytes: bytes of each row staged per step
-MAX_GROUP = 64  # queries per CTA: at most 8 slots of 8
+MAX_STAGES = 8  # the deepest ring the kernel waits on
+MAX_GROUP = 128  # queries one CTA holds: one pass over the corpus per 128
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -92,6 +99,46 @@ def _pad_desc(s: torch.Tensor, i: torch.Tensor, width: int) -> tuple[torch.Tenso
     )
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's split of float32 values for its TF32 products: ``hi`` is
+    ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
+    PTX ``cvt.rna.tf32.f32``), ``lo`` is ``x - hi`` (exact in float32)
+    rounded the same way. ``hi + lo`` is ``x`` to about 2^-21 relative; a
+    value that fits TF32 (an integer up to 2^11, any bfloat16 value) has
+    ``lo == 0``. Finite inputs only."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def split_tf32_dot(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``q @ d.T`` as the kernel's three TF32 products per element: the
+    cross products ``lo_d hi_q + hi_d lo_q`` summed apart from ``hi_d hi_q``
+    (the kernel's two accumulators), then added; each product is exact in
+    float32 and each sum float32 (in PyTorch's order, not the tensor
+    cores')."""
+    qh, ql = tf32_split(q)
+    dh, dl = tf32_split(d)
+    return (ql @ dh.T + qh @ dl.T) + qh @ dh.T
+
+
+def pack_key(scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The kernels' 64-bit threshold key of (score, id), as int64 whose
+    order is the ranking order: score desc after ``+ 0.0`` (so -0.0 equals
+    +0.0), then id asc, signed (so an empty list's threshold (-inf, -1) is
+    ahead of every real (-inf, id)). The device key is this value + 2^63 as
+    an unsigned integer (`topk_merge.cuh` ``pack_key``)."""
+    u = (scores.to(torch.float32) + 0.0).contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+    lo = (0x7FFFFFFF - ids.to(torch.int64)) & 0xFFFFFFFF
+    return (u - 0x80000000) * (1 << 32) + lo
+
+
 def _check_args(q: torch.Tensor, d: torch.Tensor, k: int, block_d: int) -> None:
     if q.dim() != 2 or d.dim() != 2 or q.shape[1] != d.shape[1]:
         raise ValueError(
@@ -135,19 +182,12 @@ def score_topk_ref(
     return state_s.contiguous(), state_i.contiguous()
 
 
-def _tiling(group: int) -> tuple[int, int]:
-    """``(slots, tile_docs)`` for a group: each thread scores its rows
-    against ``QUERIES_PER_THREAD`` queries, so the group's queries go in
-    ``slots`` (a power of two) and a slot's ``256 / slots`` threads take
-    ``ROWS_PER_THREAD`` rows each."""
-    slots = next_pow2(-(-group // QUERIES_PER_THREAD))
-    return slots, THREADS // slots * ROWS_PER_THREAD
-
-
-def _smem_bytes(group: int, k_pad: int, cap: int, dim: int) -> int:
-    slots, tile_docs = _tiling(group)
-    return (2 * tile_docs * (STAGE_BYTES + 16) + 4 * slots * QUERIES_PER_THREAD * dim
-            + 8 * group * cap + 8 * k_pad + 12 * group)
+def _smem_bytes(n_qp: int, row_bytes: int, tile_docs: int, stages: int, cap: int) -> int:
+    """The ring, the queries (rows padded by 16 bytes), each query's local
+    threshold, buffer count, list length and r-th and k-th keys, and each
+    warp's flush scratch (a key and a score per buffered candidate)."""
+    return (stages * tile_docs * (STAGE_BYTES + 16) + n_qp * (row_bytes + 16) + 32 * n_qp + 8
+            + WARPS * next_pow2(cap) * 12)
 
 
 def launch_geometry(n_q: int, dim: int, n_d: int, k: int, block_d: int, elem_size: int,
@@ -155,13 +195,16 @@ def launch_geometry(n_q: int, dim: int, n_d: int, k: int, block_d: int, elem_siz
     """The kernel's launch shape for these sizes, or ValueError when it
     cannot take them.
 
-    Queries go in groups of as many as fit a CTA's shared memory (at most
-    ``MAX_GROUP``; above one slot, whole slots of ``QUERIES_PER_THREAD``),
-    spread evenly. Doc splits are whole multiples of
-    ``block_d``, as few as keep every SM busy in one wave of CTAs: each
-    split pays a warm-up (its first k rows all enter the candidate buffers)
-    and a list in the final merge, so longer splits cost less (measured on
-    the H100, `PERF.md` §6).
+    Queries go in as few groups as possible, at most ``MAX_GROUP`` each
+    (one group, so one pass over the corpus, for every block of up to 128),
+    evened out; a group is padded to ``n_qp``, a power of two >= 8, which
+    sets the warps' layout: ``NW = min(32, n_qp)`` queries by 32 rows a
+    warp, so ``tile_docs = 32 * 8 * NW / n_qp`` rows a tile. Doc splits are
+    whole multiples of ``block_d``, as few as keep every SM busy in one wave
+    of CTAs (one CTA per SM: longer splits mean fewer buffers to flush).
+    The ring takes as many stages (2 to ``MAX_STAGES``) as fit the shared
+    memory: the more 128-byte chunks in flight, the nearer the corpus streams
+    to the card's memory rate.
     """
     if n_q < 1 or n_d < 1:
         raise ValueError(f"score_topk kernel needs queries and docs, got {n_q}, {n_d}")
@@ -174,42 +217,43 @@ def launch_geometry(n_q: int, dim: int, n_d: int, k: int, block_d: int, elem_siz
         )
     if n_d % block_d:
         raise ValueError(f"{n_d} docs not divisible by block_d {block_d}")
-    if 2 * n_d >= 2**31:
+    if n_d >= 2**31 - 4096:  # ids and a tile past the last row stay int32
         raise ValueError(f"{n_d} docs exceed the kernel's int32 doc ids")
-    k_pad = next_pow2(k)
-
-    def cap_of(group):
-        return next_pow2(max(k_pad, 2 * _tiling(group)[1]))
-
-    group = min(n_q, MAX_GROUP)
-    while group > 0 and _smem_bytes(group, k_pad, cap_of(group), dim) > SMEM_LIMIT:
-        group -= 1
-    if group == 0:
-        raise ValueError(f"one query at k={k}, dim={dim} does not fit a CTA's shared memory")
-    if group > QUERIES_PER_THREAD:  # whole slots: a part-filled slot wastes its FMAs
-        group -= group % QUERIES_PER_THREAD
-    n_groups = -(-n_q // group)
-    group = -(-n_q // n_groups)  # the same number of groups, evened out
-    slots, tile_docs = _tiling(group)
+    n_groups = -(-n_q // MAX_GROUP)
+    group = -(-n_q // n_groups)
+    n_qp = max(8, next_pow2(group))
+    tile_docs = 32 * WARPS * min(32, n_qp) // n_qp
+    cap = 2 * tile_docs  # a buffer is flushed when one more tile could overflow it
+    stages = next((s for s in range(MAX_STAGES, 1, -1)
+                   if _smem_bytes(n_qp, dim * elem_size, tile_docs, s, cap) <= SMEM_LIMIT), 0)
+    if not stages:
+        raise ValueError(f"{n_qp} query rows of dim {dim} do not fit a CTA's shared memory")
     n_blocks = n_d // block_d
     per_split = -(-n_blocks // max(1, n_sms // n_groups))
     n_splits = -(-n_blocks // per_split)  # n_groups * n_splits <= max(n_sms, n_groups)
     return {
-        "k_pad": k_pad, "cap": cap_of(group), "group": group, "slots": slots,
-        "tile_docs": tile_docs, "n_groups": n_groups, "split_rows": per_split * block_d,
-        "n_splits": n_splits, "smem": _smem_bytes(group, k_pad, cap_of(group), dim),
-        "merge_smem": 4 * 4 * k_pad,
+        "k_pad": next_pow2(k), "cap": cap, "group": group, "n_qp": n_qp,
+        "tile_docs": tile_docs, "stages": stages, "n_groups": n_groups,
+        "split_rows": per_split * block_d, "n_splits": n_splits,
+        "smem": _smem_bytes(n_qp, dim * elem_size, tile_docs, stages, cap),
+        "merge_smem": merge_smem_bytes(next_pow2(k), n_splits),
     }
+
+
+# the C entry point's parameters, in order: p a pointer, i an int
+LAUNCH_ARGS = "pp" + "p" * 7 + "pp" + "i" * 15 + "p"
+
+
+def _c_args(spec: str) -> list:
+    return [ctypes.c_void_p if c == "p" else ctypes.c_int for c in spec]
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("score_topk")
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_topk_partial_launch.argtypes = [p] * 4 + [i] * 12 + [p]
-        lib.score_topk_partial_launch.restype = i
-        lib.score_topk_merge_launch.argtypes = [p] * 4 + [i] * 5 + [p]
-        lib.score_topk_merge_launch.restype = i
+        lib.score_topk_launch.argtypes = _c_args(LAUNCH_ARGS)
+        lib.score_topk_launch.restype = i
         lib.score_topk_error_string.argtypes = [i]
         lib.score_topk_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -220,6 +264,40 @@ def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.score_topk_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+# the empty slot (-inf, -1) as a pack_key value: every list's first threshold
+EMPTY_KEY = int(pack_key(torch.tensor([float("-inf")]), torch.tensor([-1]))[0])
+
+
+GATHER_CAP = 4096  # topk_merge.cuh kGatherCap: entries the final merge sorts at once
+
+
+def merge_smem_bytes(k_pad: int, n_split: int) -> int:
+    """Shared memory of the final merge (`topk_merge.cuh` ``merge_lists``):
+    a count per CTA, then the gather of up to ``GATHER_CAP`` (key, score)
+    pairs or the pairwise merge's two lists of ``k_pad``."""
+    return (8 * n_split + 4 + 15) // 16 * 16 + max(GATHER_CAP * 12, 16 * k_pad)
+
+
+def list_states(n_lists: int, k_pad: int, n_ctas: int, per_cta: int, n_split: int, cap: int,
+                device) -> tuple[torch.Tensor, ...]:
+    """One call's top-k state (`topk_merge.cuh` ``Lists``), made afresh for
+    every call so that no state outlives it or is seen by a call on another
+    stream: each CTA's running lists and their lengths (written by the
+    kernel before it reads them), each CTA's published r-th key per list
+    (0, below every key, until it publishes), each list's proven bound (the
+    empty key, as the device's unsigned key ``pack_key + 2^63``), and each
+    CTA's candidate buffers."""
+    return (
+        torch.empty((n_ctas, per_cta, k_pad), dtype=torch.float32, device=device),
+        torch.empty((n_ctas, per_cta, k_pad), dtype=torch.int32, device=device),
+        torch.empty((n_ctas, per_cta), dtype=torch.int32, device=device),
+        torch.zeros((n_lists, n_split), dtype=torch.int64, device=device),
+        torch.full((n_lists,), EMPTY_KEY ^ -(1 << 63), dtype=torch.int64, device=device),
+        torch.empty((n_ctas, per_cta, cap), dtype=torch.float32, device=device),
+        torch.empty((n_ctas, per_cta, cap), dtype=torch.int32, device=device),
+    )
 
 
 def score_topk_cuda(q: torch.Tensor, d: torch.Tensor, *, k: int,
@@ -237,22 +315,16 @@ def score_topk_cuda(q: torch.Tensor, d: torch.Tensor, *, k: int,
     geo = launch_geometry(n_q, dim, n_d, k, block_d, d.element_size(),
                           torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib()
-    # each query's running state per split: its top k_pad, in the first k of
-    # which the split's result is left
-    part_s = torch.empty((n_q, geo["n_splits"], geo["k_pad"]), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_q, geo["n_splits"], geo["k_pad"]), dtype=torch.int32, device=dev)
+    state = list_states(n_q, geo["k_pad"], geo["n_groups"] * geo["n_splits"], geo["group"],
+                        geo["n_splits"], geo["cap"], dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rc = lib.score_topk_partial_launch(
-        q.data_ptr(), d.data_ptr(), part_s.data_ptr(), part_i.data_ptr(), n_q, dim, n_d, k,
-        geo["k_pad"], geo["cap"], geo["group"], geo["slots"], geo["split_rows"],
-        geo["n_splits"], int(d.dtype == torch.bfloat16), geo["smem"], stream,
+    rc = lib.score_topk_launch(
+        q.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in state), out_s.data_ptr(),
+        out_i.data_ptr(), n_q, dim, n_d, k, geo["k_pad"], geo["cap"], geo["group"],
+        geo["n_qp"], geo["split_rows"], geo["n_splits"], geo["n_groups"], geo["stages"],
+        int(d.dtype == torch.bfloat16), geo["smem"], geo["merge_smem"], stream,
     )
-    _raise_on(lib, rc, "score_topk_partial launch")
-    rc = lib.score_topk_merge_launch(
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), n_q,
-        geo["n_splits"], k, geo["k_pad"], geo["merge_smem"], stream,
-    )
-    _raise_on(lib, rc, "score_topk_merge launch")
+    _raise_on(lib, rc, "score_topk launch")
     return out_s, out_i

@@ -106,6 +106,91 @@ def test_cuda_kernel_matches_plain_version():
         ops.score_topk(q[:, :8].contiguous(), d[:, :8].contiguous(), k=5, block_d=1024)
 
 
+@pytest.mark.cuda
+def test_cuda_score_topk_serving_buckets():
+    """The serving buckets 8, 64 and 128 at k 1000 (one pass over the corpus
+    each), against the plain version; a block with zero query rows; integer-
+    valued rows in float32 and bfloat16 bit-equal; and a query's scores and
+    ids the same bits whichever bucket it runs in."""
+    dev = _card()
+    n_d, dim, k = 16_384, 256, 1000
+    d = _rows(500, (n_d, dim), torch.float32, dev)
+    q = _rows(501, (128, dim), torch.float32, dev)
+    q[5] = 0.0
+    runs = {}
+    for n_q in (8, 64, 128):
+        ks, ki = ops.score_topk(q[:n_q].contiguous(), d, k=k, block_d=1024)
+        ps, pi = score_topk.score_topk_ref(q[:n_q].contiguous(), d, k=k + DEEPER, block_d=1024)
+        assert_rankings_close(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), what=f"bucket {n_q}")
+        assert torch.equal(ki[5], torch.arange(k, dtype=torch.int32, device=dev))
+        runs[n_q] = (ks, ki)
+    for n_q in (8, 64):
+        assert torch.equal(runs[n_q][1], runs[128][1][:n_q])
+        assert torch.equal(runs[n_q][0].view(torch.int32), runs[128][0][:n_q].view(torch.int32))
+    rng = np.random.default_rng(502)
+    for dtype in (torch.float32, torch.bfloat16):
+        qi = torch.tensor(rng.integers(-3, 4, (128, dim)).astype(np.float32), device=dev).to(dtype)
+        di = torch.tensor(rng.integers(-3, 4, (n_d, dim)).astype(np.float32), device=dev).to(dtype)
+        ks, ki = ops.score_topk(qi, di, k=k, block_d=4096)
+        ps, pi = score_topk.score_topk_ref(qi, di, k=k, block_d=4096)
+        assert torch.equal(ki, pi), dtype
+        assert torch.equal((ks + 0.0).view(torch.int32), (ps + 0.0).view(torch.int32)), dtype
+
+
+@pytest.mark.cuda
+def test_cuda_lexical_scan_128_queries_bitwise():
+    """128 queries (repeated terms across queries) over many tiles and every
+    epilogue: bit-equal to the plain version."""
+    dev = _card()
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    q, toks, lens = _lexical_inputs(600, 8192, 40, 128, 4, 60, 300)
+    q[64:] = q[:64]  # the second half repeats the first
+    d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
+    stats = anchors.collection_stats(d, dl, 60, chunk_size=8192)
+    modes, w, ab = scoring.lexical_epilogues(grid, qt, stats)
+    for block_d, tile_d in ((8192, 16), (1024, 64)):
+        ks, ki = ops.lexical_scan_topk(qt, w, ab, d, dl, modes=modes, k=200,
+                                       block_d=block_d, tile_d=tile_d)
+        ps, pi = lexical_scan.lexical_scan_topk_ref(qt, w, ab, d, dl, modes=modes, k=200,
+                                                    block_d=block_d, tile_d=tile_d)
+        assert torch.equal(ki, pi), (block_d, tile_d)
+        assert torch.equal(ks.view(torch.int32), ps.view(torch.int32)), (block_d, tile_d)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_kernels_on_two_streams():
+    """Calls of each scan kernel on two streams at once equal the same calls
+    made one after the other: every call's thresholds, locks and buffers are
+    its own."""
+    dev = _card()
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    q, toks, lens = _lexical_inputs(700, 4096, 32, 32, 4, 50, 100)
+    d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
+    stats = anchors.collection_stats(d, dl, 50, chunk_size=4096)
+    modes, w, ab = scoring.lexical_epilogues(grid, qt, stats)
+    dq = [_rows(710 + n, (64, 128), torch.float32, dev) for n in range(2)]
+    dd = _rows(720, (8192, 128), torch.float32, dev)
+
+    def both(n):
+        lex = ops.lexical_scan_topk(qt[n::2].contiguous(), w[:, n::2].contiguous(), ab, d, dl,
+                                    modes=modes, k=300, block_d=1024)
+        return lex, ops.score_topk(dq[n], dd, k=500, block_d=1024)
+
+    alone = [both(n) for n in range(2)]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    together = []
+    for n, stream in enumerate(streams):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            together.append([both(n) for _ in range(3)])
+    torch.cuda.synchronize()
+    for n in range(2):
+        for got in together[n]:
+            for (gs, gi), (ws, wi) in zip(got, alone[n]):
+                assert torch.equal(gi, wi) and torch.equal(gs.view(torch.int32), ws.view(torch.int32))
+
+
 # b, s, h, kv, hd, causal, window, cap, block_q, block_k, dtype
 FLASH_CASES = [
     (2, 128, 4, 4, 32, True, None, None, 64, 64, torch.float32),

@@ -181,15 +181,26 @@ def test_wrapper_checks_its_arguments():
 
 def test_launch_geometry():
     geo = lexical_scan.launch_geometry(5, 64, 4, 262_144, 128, 1000, 16_384, 16)
-    assert geo["k_pad"] == 1024 and geo["tile_docs"] == 32 and geo["n_splits"] == 16
-    assert geo["group"] == 5 and geo["smem"] <= lexical_scan.SMEM_LIMIT
-    many = lexical_scan.launch_geometry(40, 64, 4, 262_144, 128, 1000, 16_384, 16)
-    assert 1 <= many["group"] < 40 and many["smem"] <= lexical_scan.SMEM_LIMIT
-    assert lexical_scan.launch_geometry(5, 4, 4, 8192, 24, 3000, 4096, 16)["group"] == 3
+    # one query group: every CTA holds all 5 x 64 lists and stages each tile once
+    assert geo["n_groups"] == 1 and geo["group"] == 64
+    assert geo["k_pad"] == 1024 and geo["tile_docs"] == 32 and geo["cap"] == 128
+    assert geo["smem"] <= lexical_scan.SMEM_LIMIT and geo["flush_rows"] == 16_384
+    # one CTA per SM, taking the tiles in turn; no more CTAs than tiles
+    assert geo["n_splits"] == 132
+    assert lexical_scan.launch_geometry(5, 7, 5, 300, 23, 37, 100, 16)["n_splits"] == 10
+    serve = lexical_scan.launch_geometry(1, 128, 4, 1 << 23, 128, 1000, 16_384, 16)
+    assert serve["n_groups"] == 1 and serve["smem"] <= lexical_scan.SMEM_LIMIT
+    assert 1 << serve["log2h"] >= 2 * 128 * 4  # the term table: at most half full
+    # tile_d rounds up to a whole warp of rows
+    assert lexical_scan.launch_geometry(5, 7, 5, 300, 23, 37, 100, 33)["tile_docs"] == 64
+    # too many query terms for one CTA: groups, each within the shared memory
+    many = lexical_scan.launch_geometry(5, 4000, 8, 8192, 24, 10, 4096, 16)
+    assert many["n_groups"] > 1 and many["group"] * many["n_groups"] >= 4000
+    assert many["smem"] <= lexical_scan.SMEM_LIMIT
     with pytest.raises(ValueError, match="at most k"):
         lexical_scan.launch_geometry(1, 1, 1, 64, 8, lexical_scan.MAX_K + 1, 64, 16)
-    with pytest.raises(ValueError, match="exceed the grid"):
-        lexical_scan.launch_geometry(1, 1, 1, 1 << 20, 8, 10, 8, 16)
+    with pytest.raises(ValueError, match="does not fit"):
+        lexical_scan.launch_geometry(1, 1, 1, 64, 1 << 16, 10, 64, 16)
     assert lexical_scan.mode_codes((
         scoring.EpilogueMode("ql", length_prior=True),
         scoring.EpilogueMode("bm25"),

@@ -145,32 +145,90 @@ def test_wrapper_checks_its_arguments():
 
 def test_launch_geometry():
     geo = score_topk.launch_geometry(64, 256, 1 << 24, 1000, 16_384, 4)
-    assert geo["k_pad"] == 1024 and geo["cap"] == 1024
-    # 16 queries in two slots of 8 per thread: 128 threads x 2 rows = 256-row tiles
-    assert geo["group"] == 16 and geo["slots"] == 2 and geo["tile_docs"] == 256
-    assert geo["n_groups"] == 4 and geo["smem"] <= score_topk.SMEM_LIMIT
-    one = score_topk.launch_geometry(8, 256, 1 << 24, 1000, 16_384, 4)  # a bucket of 8
-    assert (one["group"], one["slots"], one["tile_docs"]) == (8, 1, 512)
+    # 64 queries: one group, so one pass over the corpus; 32 x 4 rows a tile
+    assert geo["n_groups"] == 1 and geo["group"] == 64 and geo["n_qp"] == 64
+    assert geo["k_pad"] == 1024 and geo["tile_docs"] == 128 and geo["cap"] == 256
+    assert geo["smem"] <= score_topk.SMEM_LIMIT and geo["stages"] >= 2
     assert geo["split_rows"] % 16_384 == 0 and geo["n_splits"] * geo["split_rows"] >= 1 << 24
     # one wave: as many CTAs as fit the card's 132 SMs at once, no more
     assert 0.9 * 132 <= geo["n_groups"] * geo["n_splits"] <= 132
-    # groups are evened out: 10 queries in two groups of 5, not 8 + 2
-    assert score_topk.launch_geometry(10, 256, 1 << 16, 1000, 1024, 4)["group"] == 5
-    # small k: many queries share a CTA, in slots of 8 with fewer rows per slot
-    small = score_topk.launch_geometry(128, 256, 1024, 5, 128, 4)
-    assert (small["group"], small["slots"], small["tile_docs"], small["n_splits"]) == (64, 8, 64, 8)
-    assert small["cap"] >= 2 * small["tile_docs"]
-    bf16 = score_topk.launch_geometry(64, 256, 1 << 20, 1000, 1024, 2)
-    assert bf16["group"] % 8 == 0 and bf16["smem"] <= score_topk.SMEM_LIMIT
+    # every serving bucket in one group, within the shared memory, at any k
+    for n_q in (8, 64, 128):
+        for elem in (4, 2):
+            for k in (1, 1000, score_topk.MAX_K):
+                g = score_topk.launch_geometry(n_q, 256, 1 << 24, k, 16_384, elem)
+                assert g["n_groups"] == 1 and g["smem"] <= score_topk.SMEM_LIMIT, (n_q, elem, k)
+                assert g["n_qp"] == n_q and g["tile_docs"] * g["n_qp"] == 32 * 8 * min(32, n_q)
+    # a block not a power of two pads to one (zero rows, scored and never kept)
+    assert score_topk.launch_geometry(13, 256, 1 << 16, 1000, 1024, 4)["n_qp"] == 16
+    # more than 128 queries: groups evened out, 200 = 2 x 100
+    two = score_topk.launch_geometry(200, 256, 1 << 20, 1000, 1024, 4)
+    assert (two["n_groups"], two["group"], two["n_qp"]) == (2, 100, 128)
+    assert two["n_groups"] * two["n_splits"] <= 132
     with pytest.raises(ValueError, match="at most k"):
         score_topk.launch_geometry(1, 64, 64, score_topk.MAX_K + 1, 64, 4)
     with pytest.raises(ValueError, match="128 bytes"):
         score_topk.launch_geometry(1, 48, 64, 5, 64, 2)
-    with pytest.raises(ValueError, match="does not fit"):
+    with pytest.raises(ValueError, match="do not fit"):
         score_topk.launch_geometry(1, 8192, 64, 8192, 64, 4)
     # a corpus of many small blocks still takes one split per SM
     assert score_topk.launch_geometry(1, 64, 1 << 20, 5, 8, 4)["n_splits"] == 132
-    assert score_topk.launch_geometry(128, 256, 1 << 24, 1000, 16_384, 4)["n_splits"] == 16
+
+
+def test_tf32_split_three_products():
+    """The kernel's float32 scores are three TF32 products of a hi/lo split:
+    within 1e-5 of the float32 product on normalised dim-256 rows, and equal
+    to it wherever the values fit TF32 (integer-valued and bfloat16 rows)."""
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((16, 256)).astype(np.float32)
+    d = rng.standard_normal((512, 256)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tq, td = torch.tensor(q), torch.tensor(d)
+    hi, lo = score_topk.tf32_split(td)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((hi + lo - td).abs() <= 2.0**-21 * td.abs()).all()
+    exact = torch.tensor(q.astype(np.float64) @ d.astype(np.float64).T)
+    three = score_topk.split_tf32_dot(tq, td)
+    assert (three.double() - exact).abs().max() <= 1e-5
+    assert (three - tq @ td.T).abs().max() <= 1e-5
+    # one TF32 product alone is not float32-accurate at these shapes
+    assert (score_topk.tf32_split(tq)[0] @ hi.T - tq @ td.T).abs().max() > 1e-5
+    # round to nearest, ties away from zero (cvt.rna)
+    x = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-11 - 2.0**-23, 3.0])
+    assert score_topk.tf32_split(x)[0].tolist() == [1 + 2.0**-10, -(1 + 2.0**-10), 1.0, 3.0]
+    for rows in (rng.integers(-3, 4, size=(24, 256)).astype(np.float32),
+                 rng.standard_normal((24, 256)).astype(ml_dtypes.bfloat16).astype(np.float32)):
+        t = torch.tensor(rows)
+        hi, lo = score_topk.tf32_split(t)
+        assert torch.equal(hi, t) and not lo.any()
+        assert torch.equal(score_topk.split_tf32_dot(t[:8], t), t[:8] @ t.T)
+
+
+def test_threshold_key_order():
+    """The kernels' 64-bit (score, id) key orders as (score desc, id asc)
+    after ``sort_key``: ties break by id, -0.0 equals +0.0, -inf ranks last
+    and an empty slot (-inf, -1) ahead of every real (-inf, id)."""
+    from repro_torch.core.topk import sort_key
+
+    rng = np.random.default_rng(13)
+    pool = np.array([0.0, -0.0, 1.5, -1.5, 2.0**-130, -(2.0**-130), np.inf, -np.inf, 3.25e38,
+                     -3.25e38, 1.0, 1.0 + 2.0**-23], dtype=np.float32)
+    s = torch.tensor(rng.choice(pool, size=400))
+    i = torch.tensor(rng.permutation(1 << 20)[:400], dtype=torch.int32)
+    s[:3], i[:3] = float("-inf"), torch.tensor([-1, 0, 5], dtype=torch.int32)
+    key = score_topk.pack_key(s, i)
+    assert key.dtype == torch.int64 and len(set(key.tolist())) == len(key)
+    by_key = torch.argsort(key, descending=True).tolist()
+    want = sorted(range(len(s)), key=lambda j: (-float(sort_key(s[j])), int(i[j])))
+    assert by_key == want
+    assert score_topk.EMPTY_KEY == int(key[0])
+    neg_inf = torch.isneginf(s)
+    assert int(neg_inf.sum()) > 3 and (key[neg_inf][1:] < key[0]).all()
+    assert (key[~neg_inf] > key[0]).all()
+    # -0.0 and +0.0 share the score part of the key
+    z = score_topk.pack_key(torch.tensor([0.0, -0.0]), torch.tensor([7, 7]))
+    assert z[0] == z[1]
 
 
 def test_vectors_from_numpy_carries_bf16_bits():
@@ -201,11 +259,10 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
 
 def test_library_name_hashes_each_sources_flags(tmp_path, monkeypatch):
     """A change of one source's flags rebuilds that library and no other;
-    the bit-exact kernels keep --fmad=false, the flash kernels may contract
-    into FMAs."""
-    for name in ("lexical_scan", "score_topk"):
-        assert "--fmad=false" in _build.flags(name)
-    for name in ("flash_attn", "flash_decode"):
+    the bit-exact lexical scan keeps --fmad=false; the dense kernel (tensor
+    cores, nothing to contract) and the flash kernels may contract into FMAs."""
+    assert "--fmad=false" in _build.flags("lexical_scan")
+    for name in ("score_topk", "flash_attn", "flash_decode"):
         assert "--fmad=false" not in _build.flags(name)
         assert _build.flags(name)[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
     for name in ("a", "b"):
@@ -218,3 +275,19 @@ def test_library_name_hashes_each_sources_flags(tmp_path, monkeypatch):
     assert _build.library_path("a") != before["a"]
     assert _build.library_path("b") == before["b"]
 
+
+
+@pytest.mark.parametrize("name", ["score_topk", "lexical_scan"])
+def test_launch_signature_matches_source(name):
+    """The ctypes parameter list of each scan kernel's C entry point is the
+    one its source declares (a pointer for each ``void*``, an int for each
+    ``int``): ctypes cannot check it, and a short list fails only on the card."""
+    import re
+
+    from repro_torch.kernels import lexical_scan
+
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src).group(1)
+    kinds = "".join("p" if "*" in p else "i" for p in params.split(","))
+    module = score_topk if name == "score_topk" else lexical_scan
+    assert kinds == module.LAUNCH_ARGS
