@@ -21,7 +21,13 @@ code (nothing is caught and passed over):
                   128 with k 1000, and to the bit on integer-valued inputs
                   (float32 and bfloat16) and where most documents tie; a
                   query's dense result must be the same bits in a bucket of
-                  8, 64 or 128; the flash attention and
+                  8, 64 or 128; the lexical scan's packed-tile path
+                  (uint8 and uint16 rows, bit-planes of 1, 17 and 18 bits)
+                  to the bit against the unpacked kernel on the unpacked
+                  tokens and against its plain version, on ragged rows,
+                  PAD-only and zero-length rows, tiles that are not whole
+                  warps and row ranges that start off a 4-byte boundary;
+                  the flash attention and
                   decode kernels, on the reference's sweeps, head_dim 80,
                   128 and 256 and two block geometries, the wgmma route's
                   tile edges, decode positions on the card (equal to the
@@ -44,6 +50,10 @@ code (nothing is caught and passed over):
                   (2^23 docs x 128 tokens, vocab 65,536, 64 queries, k 1000,
                   5 models, 32 segments) through `runner.run_experiment` on
                   the card; every segment must launch the scan kernel.
+                  Then the same run with ``token_pack="auto"`` (17-bit
+                  planes) on the same collection: run files and checkpoint
+                  bytes identical to the unpacked run's, one launch a
+                  segment.
 5. ``resume``     the ``smoke`` experiment crashed after its first segment,
                   then resumed: run files byte-identical to an
                   uninterrupted run.
@@ -53,7 +63,9 @@ code (nothing is caught and passed over):
                   and a `LexicalSession` over the ``experiment`` phase's
                   corpus (4 waves of 256 queries); every dispatch must launch
                   its kernel once, sampled answers must match the plain
-                  oracles; then a batch-size sweep at 8, 64 and 128.
+                  oracles; then a batch-size sweep at 8, 64 and 128; then the
+                  lexical corpus resident packed (``token_pack="auto"``),
+                  the same waves, every answer the unpacked session's.
 7. ``lm``         LM serving of gemma2-2b at its full width and depth (26
                   layers, bfloat16, seeded random weights, 6.4 GB) through
                   `make_prefill_step` and `make_serve_step`: 4 prompts of
@@ -61,7 +73,10 @@ code (nothing is caught and passed over):
                   window; one untimed prefill first, then the timed one),
                   the cache copied into 8,704 slots, one untimed and 128
                   timed greedy
-                  decode steps; every layer's attention must launch the
+                  decode steps (``t`` a device int32 advanced on the card;
+                  8 more under ``set_sync_debug_mode("error")`` must make
+                  no host sync and give the host-int steps' logits and
+                  tokens bit for bit); every layer's attention must launch the
                   flash kernel (26 prefill launches, 26 x 128 decode
                   launches), every logit must be finite and the decode
                   kernel's error word clear. Then the same
@@ -246,10 +261,12 @@ def phase_build(ctx) -> None:
          nvidia_smi=ctx["smi"])
 
 
-def _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, device, repeat=False):
+def _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, device, repeat=False,
+                 n_all_pad=0):
     """Random tokens from a small vocab (ties everywhere), query pads, and
     ``n_empty`` zero-length rows, with the epilogues of ``grid``; with
-    ``repeat`` the second half of the queries repeats the first."""
+    ``repeat`` the second half of the queries repeats the first;
+    ``n_all_pad`` rows keep their length but hold only PAD tokens."""
     import numpy as np
     import torch
 
@@ -260,6 +277,7 @@ def _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, grid, device, repeat=
     lens[rng.choice(n_d, size=n_empty, replace=False)] = 0
     toks = rng.integers(0, vocab, size=(n_d, l_d)).astype(np.int32)
     toks[np.arange(l_d)[None, :] >= lens[:, None]] = scoring.PAD_TOKEN
+    toks[rng.choice(n_d, size=n_all_pad, replace=False)] = scoring.PAD_TOKEN
     q = rng.integers(0, vocab, size=(n_q, l_q)).astype(np.int32)
     q_lens = rng.integers(1, l_q + 1, size=n_q)
     q[np.arange(l_q)[None, :] >= q_lens[:, None]] = scoring.PAD_TOKEN
@@ -418,9 +436,127 @@ def phase_kernels(ctx) -> None:
          ms_128_queries_one_model=ms_128,
          geometry=lexical_scan.launch_geometry(len(modes), n_q, l_q, n_seg, l_d, k, 16_384, 16),
          ptxas=_ptxas_of("lexical_scan"), nvidia_smi=ctx["smi"])
+    _packed_lexical_kernels(ctx, mixed, corpus, args, modes, k, kern, ms,
+                            (q128, w128, ab128, m128))
     del corpus, d, dl, q, w, ab, args, plain, kern, q128, w128
     torch.cuda.empty_cache()
     _dense_kernels(ctx)
+
+
+def _packed_lexical_kernels(ctx, mixed, corpus, args, modes, k, kern, unpacked_ms,
+                            serving) -> None:
+    """The lexical kernel's packed-tile path: bit-equal to the unpacked kernel
+    on the unpacked tokens and to the plain version (which unpacks each
+    block), for uint8 and uint16 rows and bit-planes of 1, 17 and 18 bits,
+    on ragged row lengths, PAD-only and zero-length rows, tiles that are not
+    a whole number of warps and a uint8 row range that starts off a 4-byte
+    boundary; then its time per mirex-8M segment (17-bit planes) beside the
+    unpacked time and the packed byte bound, and at a serving block's shape
+    (``serving``: 128 queries, one model) beside the unpacked kernel."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels import lexical_scan, ops
+
+    dev = torch.device("cuda")
+    # name, seed, n_d, L_d, n_q, L_q, vocab, zero-length rows, PAD-only rows, k, block_d,
+    # tile_d, token_pack, first row (the rows before it are sliced off)
+    cases = [
+        ("u8_rows_23_off_boundary", 21, 301, 23, 7, 5, 200, 40, 10, 37, 300, 16, "8", 1),
+        ("u8_rows_128_tile_48", 22, 2048, 128, 9, 4, 255, 30, 30, 50, 512, 48, "auto", 0),
+        ("u8_rows_300_off_16_bytes", 23, 513, 300, 6, 3, 90, 16, 8, 30, 256, 32, "8", 1),
+        ("u16_rows_300", 24, 512, 300, 5, 3, 60_000, 16, 16, 30, 256, 32, "16", 0),
+        ("u16_rows_23_tile_40", 25, 4096, 23, 16, 4, 2048, 100, 100, 64, 1024, 40, "auto", 0),
+        ("u16_rows_23_off_boundary", 26, 1025, 23, 8, 4, 65_535, 20, 5, 40, 512, 16, "16", 1),
+        ("bits_1_rows_23", 27, 1024, 23, 4, 2, 1, 64, 64, 20, 256, 16, "bitpack", 0),
+        ("bits_1_all_zero_length", 28, 64, 40, 3, 2, 1, 64, 0, 10, 64, 16, "bitpack", 0),
+        ("bits_17_rows_128", 29, 8192, 128, 64, 4, 65_536, 200, 200, 100, 4096, 16, "auto", 0),
+        ("bits_17_rows_300_tile_33", 30, 1024, 300, 5, 3, 65_536, 16, 16, 30, 512, 33, "auto",
+         0),
+        ("bits_18_rows_23", 31, 2048, 23, 9, 4, 200_000, 300, 300, 40, 512, 24, "auto", 0),
+        ("bits_18_rows_128_queries_75", 32, 4096, 128, 75, 4, 200_000, 50, 50, 64, 1024, 16,
+         "auto", 0),
+    ]
+    results = []
+    for (name, seed, n_d, l_d, n_q, l_q, vocab, n_empty, n_pad, k_c, block_d, tile_d, mode,
+         first) in cases:
+        q, w, ab, d, dl, mds = _case_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty, mixed, dev,
+                                            n_all_pad=n_pad)
+        spec = packing.make_spec(vocab, l_d, mode)
+        p = torch.as_tensor(packing.pack_tokens(d.cpu().numpy(), spec), device=dev)
+        d, dl, p = d[first:], dl[first:], p[first:]  # row slices stay contiguous
+        before = ops.LAUNCHES["lexical_scan_topk"]
+        got = ops.lexical_scan_topk(q, w, ab, p, dl, modes=mds, k=k_c, block_d=block_d,
+                                    tile_d=tile_d, pack_spec=spec)
+        unpacked = ops.lexical_scan_topk(q, w, ab, d, dl, modes=mds, k=k_c, block_d=block_d,
+                                         tile_d=tile_d)
+        plain = lexical_scan.lexical_scan_topk_ref(q, w, ab, p, dl, modes=mds, k=k_c,
+                                                   block_d=block_d, tile_d=tile_d, pack_spec=spec)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES["lexical_scan_topk"] != before + 2:
+            raise AssertionError(f"{name}: the packed call did not launch the kernel")
+        _compare(f"{name} packed against unpacked kernel", got, unpacked)
+        results.append({"case": name, "mode": spec.mode, "bits": spec.bits,
+                        "row_bytes": lexical_scan.row_bytes(p.shape[1], spec),
+                        "start_byte_mod_16": p.data_ptr() % 16,
+                        "max_abs_err": _compare(f"{name} packed against plain", got, plain)})
+    emit("kernels.packed_edge", cases=results, nvidia_smi=ctx["smi"])
+
+    # one mirex-8M segment in 17-bit planes: the same result as unpacked, then timed
+    q, w, ab, d, dl = args
+    n_seg, l_d = d.shape
+    spec = packing.make_spec(65_536, l_d, "auto")
+    p = torch.as_tensor(packing.pack_tokens(corpus.tokens, spec), device="cuda")
+    pargs = (q, w, ab, p, dl)
+    got = ops.lexical_scan_topk(*pargs, modes=modes, k=k, block_d=16_384, tile_d=16,
+                                pack_spec=spec)
+    torch.cuda.synchronize()
+    _compare("full_segment packed against unpacked kernel", got, kern)
+    plain = lexical_scan.lexical_scan_topk_ref(*pargs, modes=modes, k=k, block_d=16_384,
+                                               pack_spec=spec)
+    err = _compare("full_segment packed against plain", got, plain)
+    ms = cuda_ms(lambda: lexical_scan.lexical_scan_topk_cuda(
+        *pargs, modes=modes, k=k, block_d=16_384, tile_d=16, pack_spec=spec), reps=20, warmup=2)
+    # the unpacked kernel again in the same call, for a side-by-side time
+    ms_unpacked = cuda_ms(lambda: lexical_scan.lexical_scan_topk_cuda(
+        *args, modes=modes, k=k, block_d=16_384, tile_d=16), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: lexical_scan.lexical_scan_topk_ref(
+        *pargs, modes=modes, k=k, block_d=16_384, pack_spec=spec), reps=3)
+    q128, w128, ab128, m128 = serving
+    ms_128 = {name: cuda_ms(lambda tok=tok, ps=ps: lexical_scan.lexical_scan_topk_cuda(
+        q128, w128, ab128, tok, dl, modes=m128, k=k, block_d=16_384, tile_d=16, pack_spec=ps),
+        reps=20, warmup=2) for name, tok, ps in (("packed", p, spec), ("unpacked", d, None))}
+    n_q = q.shape[0]
+    # the unpacked row's bound with the packed tokens' bytes
+    n_bytes = sum(t.numel() * t.element_size() for t in pargs) + 2 * len(modes) * n_q * k * 4
+    ops_count = n_seg * l_d + len(modes) * n_q * n_seg
+    bound_ms = 1e3 * max(ops_count / INT32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    bound_by = "operations" if ops_count / INT32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
+    ctx["kernels"]["lexical_scan_topk[packed]"] = {
+        "name": "lexical_scan_topk[packed]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lexical_scan.cu",
+        "replaces": "src/repro/kernels/lexical_scan.py:96",
+        "launches": None,  # from the experiment phase's packed run of the main path
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+    emit("kernels.timing", kernel="lexical_scan_topk[packed]",
+         shape=f"{n_seg}x{l_d} docs in {spec.bits}-bit planes ({spec.packed_width} int32 words "
+         f"a row), {n_q}x{q.shape[1]} queries, {len(modes)} models, k {k}",
+         ms=ms, unpacked_ms_same_call=ms_unpacked, unpacked_ms_earlier=unpacked_ms,
+         ms_128_queries_one_model=ms_128["packed"],
+         unpacked_ms_128_queries_one_model=ms_128["unpacked"],
+         plain_ms=plain_ms, plain_note="plain version: not a yardstick", bound_ms=bound_ms,
+         bound_by=bound_by, ops=ops_count, bytes=n_bytes, token_bytes=p.numel() * 4,
+         unpacked_token_bytes=d.numel() * 4,
+         geometry=lexical_scan.launch_geometry(len(modes), n_q, q.shape[1], n_seg,
+                                               spec.packed_width, k, 16_384, 16, pack_spec=spec),
+         nvidia_smi=ctx["smi"])
 
 
 def _rows(seed, shape, dtype, integer=False):
@@ -924,6 +1060,7 @@ def phase_experiment(ctx) -> None:
     from repro_torch.experiments import grid as exp_grid
     from repro_torch.experiments import runner
     from repro_torch.kernels import ops
+    from repro_torch.tune import TuningConfig
 
     spec = dataclasses.replace(
         exp_grid.get_experiment("bm25-grid"),
@@ -960,6 +1097,46 @@ def phase_experiment(ctx) -> None:
          map={m: v["map"] for m, v in report["metrics"].items()},
          p_at_10={m: v["p@10"] for m, v in report["metrics"].items()},
          phases=phases, nvidia_smi=ctx["smi"])
+
+    # the same run with packed corpus segments (token_pack "auto": 17-bit
+    # planes at vocab 65,536) on the same prepared collection: the run files
+    # and the checkpoint bytes are the unpacked run's, one launch a segment
+    out_p = os.path.join(OUT, "bm25-grid-packed")
+    shutil.rmtree(out_p, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t1 = time.monotonic()
+    packed = runner.run_experiment(
+        spec, out_dir=out_p, seed=0, collection=coll, device="cuda",
+        trace_out=os.path.join(out_p, "trace.json"), tuning=TuningConfig(token_pack="auto"),
+    )
+    packed_lifecycle_s = time.monotonic() - t1
+    packed_launches = ops.LAUNCHES["lexical_scan_topk"]
+    resolved = packed["job"]["tuning"]["pack_resolved"]
+    if resolved != "bitpack":
+        raise AssertionError(f"token_pack auto resolved to {resolved!r} at vocab {spec.vocab}")
+    if packed_launches != packed["job"]["segments_total"]:
+        raise AssertionError(f"{packed_launches} packed kernel launches for "
+                             f"{packed['job']['segments_total']} segments")
+    for model in report["models"]:
+        with open(report["runs"][model], "rb") as f_a, open(packed["runs"][model], "rb") as f_b:
+            if f_a.read() != f_b.read():
+                raise AssertionError(f"{model}: the packed run file differs from the unpacked one")
+    written = [r["job"]["obs"]["metrics"]["counters"]["ckpt.written_bytes"]
+               for r in (report, packed)]
+    if written[0] != written[1]:
+        raise AssertionError(f"checkpoint bytes written: unpacked {written[0]}, packed {written[1]}")
+    packed_phases = packed["job"]["obs"]["phases"]
+    packed_scan_s = packed_phases["(global)"]["experiment.scan"]["total_s"]
+    ctx["launches"]["lexical_scan_topk[packed]"] = packed_launches
+    emit("experiment.packed", experiment=spec.name, token_pack="auto", pack_resolved=resolved,
+         bits=int(spec.vocab).bit_length(), segments=packed["job"]["segments_total"],
+         launches=packed_launches, run_files_identical=True, ckpt_written_bytes=written[1],
+         lifecycle_s=packed_lifecycle_s, scan_s=packed_scan_s,
+         docs_per_s=spec.n_docs / packed_scan_s, unpacked_scan_s=scan_s,
+         unpacked_docs_per_s=spec.n_docs / scan_s,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), phases=packed_phases,
+         nvidia_smi=ctx["smi"])
 
 
 def phase_resume(ctx) -> None:
@@ -1125,6 +1302,44 @@ def phase_serve(ctx) -> None:
          chunk_size=chunk, waves=4, wave_queries=n_wave, launches=launches,
          sampled_bit_equal=True, **_serve_line(service, "lexical", wall_s, sweep),
          nvidia_smi=ctx["smi"])
+    unpacked_bytes = session.resident_corpus_bytes
+    del session, service
+    torch.cuda.empty_cache()
+
+    # the same corpus resident packed (token_pack "auto": 17-bit planes), the
+    # same waves: every answer the unpacked session's, bit for bit
+    session = LexicalSession(coll.corpus.tokens, coll.corpus.lengths, cfg.scorer, k=k,
+                             chunk_size=chunk, stats=coll.stats, token_pack="auto")
+    if session.pack_mode != "bitpack":
+        raise AssertionError(f"the packed session resolved to {session.pack_mode!r}")
+    service = RetrievalService({"lexical": session}, max_batch=n_wave, registry=Metrics())
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    for b, wave in enumerate(waves):
+        rids = [service.submit(q, "lexical") for q in wave]
+        results = service.poll()
+        results.update(service.drain())
+        _answered_once(results, rids)
+        for j, r in enumerate(rids):
+            want, got = answers[(b, j)], results[r]
+            if not (np.array_equal(got.ids, want.ids)
+                    and np.array_equal(got.scores.view(np.int32), want.scores.view(np.int32))):
+                raise AssertionError(f"packed session: wave {b} query {j} differs from unpacked")
+    wall_s = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches["lexical_scan_topk"] != len(service.metrics) or launches["score_topk"]:
+        raise AssertionError(f"{launches} kernel launches for {len(service.metrics)} "
+                             "packed lexical dispatches")
+    line = _serve_line(service, "lexical", wall_s, {"curve": []})
+    emit("serve.lexical_packed", n_docs=session.n_docs, pack_mode=session.pack_mode,
+         resident_bytes=session.resident_corpus_bytes, unpacked_resident_bytes=unpacked_bytes,
+         token_bytes=session.resident_corpus_bytes - 4 * session.n_docs,
+         unpacked_token_bytes=unpacked_bytes - 4 * session.n_docs, waves=4,
+         wave_queries=n_wave, launches=launches, answers_bit_equal_to_unpacked=True,
+         **{key: line[key] for key in ("dispatches", "queries", "buckets", "block_latency_ms",
+                                       "us_per_query", "qps", "wall_s", "wall_qps")},
+         nvidia_smi=ctx["smi"])
 
 
 def _record_calls(fn, outs: list):
@@ -1235,7 +1450,8 @@ def _on_card_and_cpu_agree(cfg_full, params) -> dict:
 def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
     """Where the device time goes: `torch.profiler` over one prefill and
     over 8 decode steps (after the timed runs; the decode steps write
-    positions past the timed ones). Per window: wall seconds (profiling
+    positions past the timed ones, from ``t``, a device int32 advanced in
+    place). Per window: wall seconds (profiling
     adds host time), the device's busy seconds (the sum of its activities'
     device time: one stream, so they do not overlap), the idle share and
     the top activities by device time."""
@@ -1269,12 +1485,48 @@ def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
 
     def decode():
         nonlocal tok
-        for i in range(8):
-            logits, _ = step(params, cache, tok, t + i)
+        for _ in range(8):
+            logits, _ = step(params, cache, tok, t)
             tok = torch.argmax(logits, dim=-1)
+            t.add_(1)
 
     out["decode_8_steps"] = window(decode)
     return out
+
+
+def _device_t_step(params, cache, step, tok, t0: int, n: int = 8) -> dict:
+    """The serve step with ``t`` on the card makes no host sync: ``n`` steps
+    run under `torch.cuda.set_sync_debug_mode("error")` from a copy of the
+    cache, beside ``n`` steps with a host-int ``t`` from the cache itself
+    (positions ``t0`` on, past the timed ones). Same kernels, same inputs:
+    logits and greedy tokens must be the host-int steps' bit for bit."""
+    import torch
+
+    copy = {name: x.clone() for name, x in cache.items()}
+    t_dev = torch.tensor(t0, dtype=torch.int32, device="cuda")
+    tok_h = tok_d = tok
+    torch.cuda.synchronize()
+    for i in range(n):
+        want, cache = step(params, cache, tok_h, t0 + i)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, copy = step(params, copy, tok_d, t_dev)
+            tok_d = torch.argmax(got, dim=-1)
+            t_dev.add_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        tok_h = torch.argmax(want, dim=-1)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"device-t step {i}: logits differ from the host-int step's")
+        if not torch.equal(tok_d, tok_h):
+            raise AssertionError(f"device-t step {i}: greedy tokens differ")
+    for name in cache:
+        if not torch.equal(copy[name], cache[name]):
+            raise AssertionError(f"device-t steps wrote another {name} cache")
+    del copy
+    torch.cuda.empty_cache()
+    return {"steps": n, "positions": [t0, t0 + n - 1], "sync_debug_mode": "error",
+            "logits_bit_equal": True, "greedy_tokens_equal": True, "cache_equal": True}
 
 
 def phase_lm(ctx) -> None:
@@ -1321,14 +1573,17 @@ def phase_lm(ctx) -> None:
     torch.cuda.empty_cache()
     step = tfm.make_serve_step(cfg, batch=batch)
     tok = torch.argmax(logits, dim=-1)
-    step(params, full, tok, prompt)  # untimed: the timed first step rewrites position t
+    # the position lives on the card and advances there, as the decode CLI's
+    t = torch.tensor(prompt, dtype=torch.int32, device="cuda")
+    step(params, full, tok, t)  # untimed: the timed first step rewrites position t
     step_s, seq0 = [], []
     torch.cuda.synchronize()
     ops.reset_launches()
-    for t in range(prompt, prompt + n_decode):
+    for _ in range(n_decode):
         t1 = time.monotonic()
         logits, full = step(params, full, tok, t)
         tok = torch.argmax(logits, dim=-1)
+        t.add_(1)
         torch.cuda.synchronize()
         step_s.append(time.monotonic() - t1)
         finite &= bool(torch.isfinite(logits).all())
@@ -1346,9 +1601,12 @@ def phase_lm(ctx) -> None:
     ctx["launches"]["flash_attention"] = prefill_launches["flash_attention"]
     ctx["launches"]["flash_decode"] = decode_launches["flash_decode"]
     steps = np.array(step_s)
+    device_t = _device_t_step(params, full, step, tok, prompt + n_decode)
+    emit("lm.device_t", **device_t, nvidia_smi=ctx["smi"])
     # each flash kernel's device time from the profiler (one prefill, 8
     # decode steps), over the timed runs' wall time
-    profile = _profile_lm(params, tokens, cfg, full, step, tok, prompt + n_decode)
+    profile = _profile_lm(params, tokens, cfg, full, step, tok,
+                          torch.tensor(prompt + n_decode + 8, dtype=torch.int32, device="cuda"))
     attn_s = profile["prefill"]["flash_s"]["flash_attention"]
     decode_step_s = profile["decode_8_steps"]["flash_s"]["flash_decode"] / 8
     emit("lm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,

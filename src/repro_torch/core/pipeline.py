@@ -11,8 +11,10 @@ is no compiled scan to build). Chunk folds are idempotent re-reduces: the
 combiner state is associative, so a re-executed chunk merges to the same
 result.
 
-A "pytree" here is a tensor or a tuple of tensors whose leading dims agree
-(``(tokens, lengths)`` for a lexical corpus).
+A "pytree" here is a tensor, a tuple of tensors whose leading dims agree
+(``(tokens, lengths)`` for a lexical corpus), or a
+`packing.PackedCorpus`, whose leaves are its packed tokens and its lengths,
+in that order, as the reference's pytree registration has them.
 """
 
 from __future__ import annotations
@@ -21,18 +23,24 @@ from typing import Any, Callable, TypeVar
 
 import torch
 
+from repro_torch.core.packing import PackedCorpus
+
 S = TypeVar("S")
 
 
 def leaves(tree: Any) -> list:
-    """The tensors of a tensor-or-tuple tree, in order."""
+    """The tensors of a tree, in order (a packed corpus: tokens, lengths)."""
+    if isinstance(tree, PackedCorpus):
+        return [tree.tokens, tree.lengths]
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in leaves(t)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor of a tensor-or-tuple tree."""
+    """Apply ``fn`` to every tensor of a tree; a packed corpus keeps its spec."""
+    if isinstance(tree, PackedCorpus):
+        return PackedCorpus(fn(tree.tokens), fn(tree.lengths), tree.spec)
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, t) for t in tree)
     return fn(tree)

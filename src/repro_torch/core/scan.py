@@ -20,6 +20,12 @@ reference's host fold (``use_kernel=False``) on every device; the
 reference's own kernel path drops the row map and returns dot products for
 ``dense_cosine``. :func:`search_dense_host` is the unblocked test oracle.
 
+A lexical ``docs`` may be a `packing.PackedCorpus`: its packed tokens,
+lengths and spec go to `ops.lexical_scan_topk` as they are (the kernel
+decodes each tile, the plain version each block), with results equal to
+the unpacked corpus's bit for bit. A dense scorer on a packed corpus is
+refused.
+
 The mesh scan (``search_sharded``) waits for the mesh slice.
 """
 
@@ -29,7 +35,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import pipeline, scoring, topk
+from repro_torch.core import packing, pipeline, scoring, topk
 from repro_torch.core.scoring import CollectionStats, Scorer
 from repro_torch.tune import config as tune_config
 from repro_torch.tune.config import TuningConfig
@@ -78,9 +84,10 @@ def search_local(
     """Scan a local corpus shard with one scorer; top-k (global doc ids) per
     query, shapes ``[n_q, k]``.
 
-    ``docs`` is ``(tokens [n, L], lens [n])`` for lexical scorers or a vector
-    matrix ``[n, dim]`` for dense scorers; ``n`` must be a multiple of
-    ``chunk_size``. ``use_kernel`` changes nothing.
+    ``docs`` is ``(tokens [n, L], lens [n])`` or a `packing.PackedCorpus`
+    for lexical scorers, or a vector matrix ``[n, dim]`` for dense scorers;
+    ``n`` must be a multiple of ``chunk_size``. ``use_kernel`` changes
+    nothing.
     """
     state = search_local_multi(
         queries, docs, (scorer,), k=k, chunk_size=chunk_size, stats=stats,
@@ -122,6 +129,9 @@ def search_local_multi(
     if len(kinds) != 1:
         raise ValueError(f"multi-scorer scan needs a single kind, got {sorted(kinds)}")
     kind = kinds.pop()
+    packed = isinstance(docs, packing.PackedCorpus)
+    if packed and kind != "lexical":
+        raise ValueError(f"a packed corpus holds tokens; {kind} scorers need vectors")
     _check_chunking(docs, chunk_size)
     n_q = pipeline.leaves(queries)[0].shape[0]
     if init_state is not None:
@@ -142,11 +152,15 @@ def search_local_multi(
     else:
         from repro_torch.kernels import ops
 
-        d_tokens, d_len = docs
+        if packed:
+            d_tokens, d_len, pack_spec = docs.tokens, docs.lengths, docs.spec
+        else:
+            (d_tokens, d_len), pack_spec = docs, None
         modes, weights, ab = scoring.lexical_epilogues(scorers, queries, stats)
         scores, ids = ops.lexical_scan_topk(
             queries, weights, ab, d_tokens, d_len, modes=modes, k=k,
             block_d=cfg.lex_block(chunk_size, d_tokens.shape[0]), tile_d=cfg.lex_tile_d,
+            pack_spec=pack_spec,
         )
     state = topk.TopKState(scores=scores, ids=_offset_ids(ids, doc_id_offset))
     if init_state is not None:

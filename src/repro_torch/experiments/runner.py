@@ -32,7 +32,7 @@ import torch
 
 from repro_torch import obs, tune
 from repro_torch.cluster import FaultSchedule, plan_shards, run_sharded_scan_job
-from repro_torch.core import anchors, topk
+from repro_torch.core import anchors, packing, topk
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.eval import evaluate_run, paired_randomization_test, trec
@@ -125,10 +125,12 @@ def run_experiment(
     ``device`` (default ``cuda``) is where the corpus lives and the scan
     runs. ``fail_at_segment``/``fail_at_shard`` (deprecated) and ``faults``
     inject crashes. ``trace_out`` installs a fresh tracer + metrics for the
-    run and writes the Chrome trace there. Not in this slice, and raising
+    run and writes the Chrome trace there. A ``tuning`` whose ``token_pack``
+    is not ``"none"`` packs the corpus on the host before the scan
+    (`packing.pack_corpus`) when every scorer is lexical; the run files are
+    the unpacked run's, byte for byte. Not in this slice, and raising
     ``NotImplementedError``: ``pipelined=True``, ``max_workers``,
-    ``max_retries``, ``speculative``, ``tune_lookup``/``tune_cache`` and a
-    ``tuning`` with ``token_pack`` other than ``"none"``.
+    ``max_retries``, ``speculative`` and ``tune_lookup``/``tune_cache``.
     """
     dev = resolve_device(device)
     if pipelined:
@@ -141,8 +143,6 @@ def run_experiment(
         raise _not_in_this_slice("speculative execution", "executor")
     if tune_lookup or tune_cache is not None:
         raise _not_in_this_slice("the autotune winner cache (--tune)", "autotune")
-    if tuning is not None and tuning.token_pack != "none":
-        raise _not_in_this_slice(f"token_pack={tuning.token_pack!r}", "packing")
     if fail_at_segment is not None:
         warnings.warn(
             "fail_at_segment/fail_at_shard are deprecated; use "
@@ -206,11 +206,24 @@ def _run_experiment_traced(
             else prepare_collection(spec, seed=seed, device=device)
         )
     scorers = spec.scorers()
-    docs = (
-        torch.as_tensor(coll.corpus.tokens, device=device),
-        torch.as_tensor(coll.corpus.lengths, device=device),
-    )
     stats = type(coll.stats)(*(t.to(device) for t in coll.stats))
+    # pack on the producer: token segments shrink to the tuned width here,
+    # before they reach the card, and the scan decodes exactly — run files
+    # stay byte-identical to the unpacked run (the pack contract)
+    pack_resolved = "none"
+    docs = None
+    if cfg.token_pack != "none" and all(s.kind == "lexical" for s in scorers):
+        packed = packing.pack_corpus(
+            coll.corpus.tokens, coll.corpus.lengths, vocab=spec.vocab, mode=cfg.token_pack,
+        )
+        if isinstance(packed, packing.PackedCorpus):
+            pack_resolved = packed.spec.mode
+            docs = packed.to(device)
+    if docs is None:
+        docs = (
+            torch.as_tensor(coll.corpus.tokens, device=device),
+            torch.as_tensor(coll.corpus.lengths, device=device),
+        )
 
     # the tuned chunk replaces the spec's for the scan fold only, and only
     # when it divides every shard (a knob may be ignored, never fail a job)
@@ -310,7 +323,7 @@ def _run_experiment_traced(
                 "overrides": cfg.overrides(),
                 "chunk_size": chunk,
                 "token_pack": cfg.token_pack,
-                "pack_resolved": "none",
+                "pack_resolved": pack_resolved,
             },
             "obs": obs_block,
             "shards": [

@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100. The least work these inputs need: read the
 // token matrix and the lengths once (n_d * (L_d + 1) * 4 bytes: 129 MiB for a
-// 262,144 x 128 segment, ~40 us at 3.35 TB/s), look each token up once
+// 262,144 x 128 segment, ~40 us at 3.35 TB/s; packed in 17-bit planes,
+// n_d * (68 + 1) * 4 bytes, ~22 us), look each token up once
 // against the block's query terms, and one epilogue and compare for each
 // (model, query, doc). The bytes bound it. (Comparing every query term with
 // every token would be 1.7e10 INT32 operations a segment, ~1.03 ms: looking
@@ -20,11 +21,20 @@
 // Layout. One launch, one CTA per SM; a CTA takes every n_split-th tile of
 // `tile_docs` rows (so the CTAs scan the ids in order together) and holds
 // every (model, query) list of the call. Steps per tile:
-//   1. stage: the tile's tokens are one contiguous range of the token
-//      matrix, copied by 16-byte cp.async (4-byte copies at its unaligned
-//      ends) into one of two buffers, while the previous tile is counted.
-//      (Packed tiles would be decoded here, between staging and counting.)
-//   2. count: one warp per row; each lane tests its tokens against a
+//   1. stage: the tile's rows are one contiguous range of bytes of the token
+//      matrix, copied by 16-byte cp.async (4-byte copies, and plain loads for
+//      the bytes before and after a 4-byte boundary, at its ragged ends) into
+//      one of two buffers, while the previous tile is counted. A packed
+//      tile (the `Pack` template argument: uint8 or uint16 rows, or int32
+//      bit-planes, `repro_torch.core.packing`) stages as its packed bytes.
+//   2. count: one warp per row; lane j reads positions j, j + 32, ... (below
+//      the row's unpacked length only: bit-planes pad their last group with
+//      zeros, and 0 is a real term), a packed token decoded right there, so
+//      no second buffer of decoded rows is needed (uint8 / uint16: the lane
+//      reads its element; bit-planes: lane p reads plane p of the group and
+//      a bit transpose across the warp hands lane t its token; the PAD
+//      sentinel `vocab` maps back to -1). Each lane
+//      tests its tokens against a
 //      65,536-bit map of the query terms (token & 0xffff), and a hit looks
 //      the token up in an open-addressing table of the distinct terms; the
 //      warp's count of that term goes up by one (shared-memory atomics). A
@@ -59,6 +69,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kEmpty = static_cast<int>(0x80000000u);  // a free hash slot
 constexpr int kMapWords = 65536 / 32;
 
+// the token layouts: int32 rows, uint8 rows, uint16 rows, int32 bit-planes
+constexpr int kPackNone = 0, kPackU8 = 1, kPackU16 = 2, kPackBits = 3;
+
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes16) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   if (bytes16) {
@@ -66,6 +79,43 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
   }
+}
+
+// The token at position x (< the unpacked length) of a staged int32, uint8
+// or uint16 row. A packed PAD is the sentinel `vocab`: back to -1.
+template <int Pack>
+__device__ __forceinline__ int row_token(const unsigned char* row, int x, int sentinel) {
+  if constexpr (Pack == kPackNone) {
+    return reinterpret_cast<const int*>(row)[x];
+  } else {
+    const int tok = Pack == kPackU8 ? row[x] : reinterpret_cast<const unsigned short*>(row)[x];
+    return tok == sentinel ? -1 : tok;
+  }
+}
+
+// One round of a 32 x 32 bit transpose across a warp (lane r holds row r,
+// bit c is column c): elements (r, c) whose bit j of r and of c differ move
+// to (r ^ j, c ^ j); `m` holds the columns whose bit j is 0.
+__device__ __forceinline__ unsigned transpose_round(unsigned x, int lane, int j, unsigned m) {
+  const unsigned other = __shfl_xor_sync(0xffffffffu, x, j);
+  return (lane & j) ? (x & ~m) | ((other >> j) & m) : (x & m) | ((other << j) & ~m);
+}
+
+// The token at position 32 g + lane of a row of bit-planes, decoded by the
+// whole warp at once (every lane must call it): lane p reads plane p of
+// group g, whose bit t is bit p of the token at 32 g + t, and five rounds of
+// shuffles transpose the planes so that lane t holds its token (one shared
+// read and ~25 operations a lane for 32 tokens, where each lane reading
+// every plane would take `bits` reads and ~3 `bits` operations a token).
+__device__ __forceinline__ int plane_token(const unsigned char* row, int g, int lane, int bits,
+                                           int sentinel) {
+  unsigned x = lane < bits ? reinterpret_cast<const unsigned*>(row)[g * bits + lane] : 0u;
+  x = transpose_round(x, lane, 16, 0x0000ffffu);
+  x = transpose_round(x, lane, 8, 0x00ff00ffu);
+  x = transpose_round(x, lane, 4, 0x0f0f0f0fu);
+  x = transpose_round(x, lane, 2, 0x33333333u);
+  x = transpose_round(x, lane, 1, 0x55555555u);
+  return static_cast<int>(x) == sentinel ? -1 : static_cast<int>(x);
 }
 
 __device__ __forceinline__ unsigned hash_slot(int term, int log2h) {
@@ -101,24 +151,28 @@ __device__ __forceinline__ float finish(float s, int mode, int dlen, float log_d
 
 // Mode code per model: bits 0-1 = 0 ql | 1 bm25 | 2 tfidf, bit 2 = length
 // prior, bit 3 = rsqrt length norm. Lists are (model, query), model-major.
-extern "C" __global__ void __launch_bounds__(kThreads, 1)
+// A doc row is `row_bytes` bytes holding `l_tok` tokens in layout `Pack`.
+template <int Pack>
+__global__ void __launch_bounds__(kThreads, 1)
 lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
                     const float* __restrict__ weights,  // [n_models, n_q, l_q]
                     const float* __restrict__ ab,       // [n_models, 2]
                     const int* __restrict__ modes,      // [n_models]
-                    const int* __restrict__ docs,       // [n_d, l_d]
+                    const unsigned char* __restrict__ docs,  // [n_d, row_bytes]
                     const int* __restrict__ lens,       // [n_d]
-                    topk::Lists L, int n_q, int l_q, int n_models, int n_d, int l_d,
-                    int tile_docs, int flush_rows, int log2h) {
+                    topk::Lists L, int n_q, int l_q, int n_models, int n_d, int l_tok,
+                    int row_bytes, int bits, int sentinel, int tile_docs, int flush_rows,
+                    int log2h) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_slots = n_q * l_q;
   const int n_lists = n_models * n_q;
   const int hsize = 1 << log2h;
-  const int buf_ints = (tile_docs * l_d + 7) & ~3;  // a tile + 3 ints of alignment slack
+  // a tile + 15 bytes of alignment slack, in whole 16-byte units
+  const int buf_bytes = (tile_docs * row_bytes + 30) & ~15;
 
-  int* ring = reinterpret_cast<int*>(smem);           // [2][buf_ints]
-  unsigned* map = reinterpret_cast<unsigned*>(ring + 2 * buf_ints);  // [kMapWords]
+  unsigned char* ring = smem;                         // [2][buf_bytes]
+  unsigned* map = reinterpret_cast<unsigned*>(ring + 2 * buf_bytes);  // [kMapWords]
   int* hkey = reinterpret_cast<int*>(map + kMapWords);  // [hsize]
   int* hval = hkey + hsize;                           // [hsize]: the term's index
   int* slot_term = hval + hsize;                      // [n_slots]
@@ -221,26 +275,33 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   // rank first, and a bound found early holds for every later tile
   const int n_tiles = ((n_d + tile_docs - 1) / tile_docs - blockIdx.x + gridDim.x - 1) / gridDim.x;
   auto tile_start = [&](int t) { return (blockIdx.x + t * gridDim.x) * tile_docs; };
-  // stage tile `t` into buffer t & 1: its tokens are ints [g0, g0 + n) of the
-  // matrix, placed `mis` ints into the buffer, their address's offset from a
-  // 16-byte boundary, so 16-byte copies align on both sides
+  // stage tile `t` into buffer t & 1: its rows are bytes [g0, g0 + n) of the
+  // matrix, placed `mis` bytes into the buffer, their address's offset from
+  // a 16-byte boundary, so copies align on both sides. The range splits at
+  // 4- and 16-byte boundaries: [0, a) and [e, n) are the bytes off a 4-byte
+  // boundary (uint8 / uint16 rows only), plain loads and shared stores;
+  // [a, b) and [c, e) 4-byte cp.async; [b, c) 16-byte cp.async. Nothing past
+  // the tile's last byte is read.
   auto misalign = [&](size_t g0) {
-    return static_cast<int>((reinterpret_cast<uintptr_t>(docs + g0) >> 2) & 3);
+    return static_cast<int>(reinterpret_cast<uintptr_t>(docs + g0) & 15);
   };
   auto issue = [&](int t) {
     if (t < n_tiles) {
       const int d0 = tile_start(t);
-      const size_t g0 = static_cast<size_t>(d0) * l_d;
-      const int n = min(tile_docs, n_d - d0) * l_d;
+      const size_t g0 = static_cast<size_t>(d0) * row_bytes;
+      const int n = min(tile_docs, n_d - d0) * row_bytes;
       const int mis = misalign(g0);
-      int* dst = ring + (t & 1) * buf_ints + mis;
-      const int head = min(n, (4 - mis) & 3);
-      const int body = (n - head) & ~3;
-      for (int i = tid; i < head; i += kThreads) cp_async(dst + i, docs + g0 + i, 0);
-      for (int i = tid; i < body / 4; i += kThreads) {
-        cp_async(dst + head + 4 * i, docs + g0 + head + 4 * i, 1);
-      }
-      for (int i = head + body + tid; i < n; i += kThreads) cp_async(dst + i, docs + g0 + i, 0);
+      unsigned char* dst = ring + (t & 1) * buf_bytes + mis;
+      const unsigned char* src = docs + g0;
+      const int a = min(n, (4 - mis) & 3);
+      const int b = a + min((n - a) & ~3, (16 - ((mis + a) & 15)) & 15);
+      const int c = b + ((n - b) & ~15);
+      const int e = c + ((n - c) & ~3);
+      for (int i = tid; i < a; i += kThreads) dst[i] = src[i];
+      for (int i = a + 4 * tid; i < b; i += 4 * kThreads) cp_async(dst + i, src + i, 0);
+      for (int i = b + 16 * tid; i < c; i += 16 * kThreads) cp_async(dst + i, src + i, 1);
+      for (int i = c + 4 * tid; i < e; i += 4 * kThreads) cp_async(dst + i, src + i, 0);
+      for (int i = e + tid; i < n; i += kThreads) dst[i] = src[i];
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -267,6 +328,18 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
 
   int* wc = wcnt + warp * n_slots;
   unsigned* qm = qmask + warp * qwords;
+  // count one token against the query terms
+  auto count = [&](int tok) {
+    if ((map[(tok & 0xffff) >> 5] >> (tok & 31)) & 1u) {
+      const int idx = lookup(tok);
+      if (idx >= 0 && atomicAdd(&wc[idx], 1) == 0) {  // the term's first hit: mark its queries
+        for (int j = 0; j < qwords; ++j) {
+          const unsigned qbits = tmask[idx * qwords + j];
+          if (qbits) atomicOr(&qm[j], qbits);
+        }
+      }
+    }
+  };
   int since_flush = 0;
   issue(0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -279,24 +352,20 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
     issue(t + 1);  // the next tile lands while this one is counted
     const int d0 = tile_start(t);
     const int nt = min(tile_docs, n_d - d0);
-    const size_t g0 = static_cast<size_t>(d0) * l_d;
-    const int* tile = ring + (t & 1) * buf_ints + misalign(g0);
+    const size_t g0 = static_cast<size_t>(d0) * row_bytes;
+    const unsigned char* tile = ring + (t & 1) * buf_bytes + misalign(g0);
     for (int r = warp; r < nt; r += kWarps) {
-      const int* row = tile + r * l_d;
-      // count: each token once against the query terms
-      for (int x = lane; x < l_d; x += 32) {
-        const int tok = row[x];
-        if ((map[(tok & 0xffff) >> 5] >> (tok & 31)) & 1u) {
-          const int idx = lookup(tok);
-          if (idx >= 0) {
-            if (atomicAdd(&wc[idx], 1) == 0) {  // the term's first hit: mark its queries
-              for (int j = 0; j < qwords; ++j) {
-                const unsigned bits = tmask[idx * qwords + j];
-                if (bits) atomicOr(&qm[j], bits);
-              }
-            }
-          }
+      const unsigned char* row = tile + r * row_bytes;
+      // count: each token once against the query terms; only positions
+      // below the row's unpacked length (bit-planes pad their last group
+      // with zeros, and 0 is a real term)
+      if constexpr (Pack == kPackBits) {
+        for (int x0 = 0; x0 < l_tok; x0 += 32) {  // the warp decodes 32 positions together
+          const int tok = plane_token(row, x0 >> 5, lane, bits, sentinel);
+          if (x0 + lane < l_tok) count(tok);
         }
+      } else {
+        for (int x = lane; x < l_tok; x += 32) count(row_token<Pack>(row, x, sentinel));
       }
       __syncwarp();
       const int gid = d0 + r;
@@ -354,31 +423,42 @@ lexical_scan_merge(topk::Lists L, float* __restrict__ out_s, int* __restrict__ o
                     out_i + static_cast<size_t>(l) * L.k, smem);
 }
 
-// Plain C entry point for ctypes: the scan, then the merge. Returns
-// cudaGetLastError() after the launches (the Python wrapper raises when that
-// is not cudaSuccess).
+// Plain C entry point for ctypes: the scan, then the merge. `pack` is the
+// token layout (kPack*), `l_tok` the unpacked row length, `row_bytes` a
+// stored row's bytes, `bits` the bit-planes and `sentinel` the packed PAD.
+// Returns cudaGetLastError() after the launches (the Python wrapper raises
+// when that is not cudaSuccess).
 extern "C" int lexical_scan_launch(
     const void* q_safe, const void* weights, const void* ab, const void* modes,
     const void* docs, const void* lens, void* st_s, void* st_i, void* st_len, void* pub,
     void* thr, void* cb_s, void* cb_i, void* out_s, void* out_i, int n_q, int l_q,
-    int n_models, int n_d, int l_d, int k, int k_pad, int cap, int n_splits,
-    int tile_docs, int flush_rows, int log2h, int smem_bytes, int merge_smem_bytes,
-    void* stream) {
+    int n_models, int n_d, int l_tok, int row_bytes, int pack, int bits, int sentinel, int k,
+    int k_pad, int cap, int n_splits, int tile_docs, int flush_rows, int log2h,
+    int smem_bytes, int merge_smem_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(lexical_scan_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_lists = n_models * n_q;
   const topk::Lists L{static_cast<float*>(st_s), static_cast<int*>(st_i),
                       static_cast<int*>(st_len), static_cast<unsigned long long*>(pub),
                       static_cast<unsigned long long*>(thr), static_cast<float*>(cb_s),
                       static_cast<int*>(cb_i), k, k_pad, cap, n_lists,
                       (k + n_splits - 1) / n_splits};
-  lexical_scan_kernel<<<n_splits, kThreads, smem_bytes, s>>>(
+  // the scan kernel of this token layout
+  decltype(&lexical_scan_kernel<kPackNone>) scan;
+  switch (pack) {
+    case kPackNone: scan = lexical_scan_kernel<kPackNone>; break;
+    case kPackU8: scan = lexical_scan_kernel<kPackU8>; break;
+    case kPackU16: scan = lexical_scan_kernel<kPackU16>; break;
+    case kPackBits: scan = lexical_scan_kernel<kPackBits>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  scan<<<n_splits, kThreads, smem_bytes, s>>>(
       static_cast<const int*>(q_safe), static_cast<const float*>(weights),
       static_cast<const float*>(ab), static_cast<const int*>(modes),
-      static_cast<const int*>(docs), static_cast<const int*>(lens), L, n_q, l_q, n_models,
-      n_d, l_d, tile_docs, flush_rows, log2h);
+      static_cast<const unsigned char*>(docs), static_cast<const int*>(lens), L, n_q, l_q,
+      n_models, n_d, l_tok, row_bytes, bits, sentinel, tile_docs, flush_rows, log2h);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaFuncSetAttribute(lexical_scan_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,

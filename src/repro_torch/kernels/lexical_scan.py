@@ -21,6 +21,12 @@ model's epilogue (`scoring.apply_epilogue`) on that shared tf, and each
   ``block_d`` is how many rows a CTA scans between flushes of all its
   candidate buffers. Neither changes a bit of the result.
 
+Both take a packed token matrix (``pack_spec``, a `packing.PackSpec`:
+``uint8``/``uint16`` rows or int32 bit-planes, as the reference's
+``lexical_scan_topk_pallas`` does): the plain version unpacks each block of
+``block_d`` rows; the kernel stages the packed bytes and decodes each token
+where the count reads it. Results are the unpacked call's, bit for bit.
+
 The public entry point is `repro_torch.kernels.ops.lexical_scan_topk`, which
 picks between the two by the tensors' device and counts launches.
 """
@@ -31,6 +37,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.packing import PackSpec, unpack_tokens
 from repro_torch.core.pipeline import next_pow2
 from repro_torch.core.scoring import (
     EpilogueMode,
@@ -53,6 +60,8 @@ _MODE_KIND = {"ql": 0, "bm25": 1, "tfidf": 2}
 # one CTA's shared memory on sm_90 (227 KB)
 SMEM_LIMIT = 232448
 MAX_K = 8192  # the states live in device memory; k only sets their length
+# the kernel's token layouts: int32 rows, then each packed mode
+_PACK_CODE = {None: 0, "u8": 1, "u16": 2, "bitpack": 3}
 
 
 def mode_codes(modes: tuple[EpilogueMode, ...]) -> list[int]:
@@ -70,7 +79,8 @@ def mode_codes(modes: tuple[EpilogueMode, ...]) -> list[int]:
     return codes
 
 
-def _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d):
+def _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d,
+                pack_spec: PackSpec | None = None):
     n_q, l_q = q_tokens.shape
     n_d = d_tokens.shape[0]
     n_models = weights.shape[0]
@@ -86,23 +96,35 @@ def _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_
         raise ValueError(f"k, block_d, tile_d must be >= 1, got {k}, {block_d}, {tile_d}")
     if n_d % block_d:
         raise ValueError(f"{n_d} docs not divisible by block_d {block_d}")
+    want = torch.int32 if pack_spec is None else pack_spec.torch_dtype()
+    if d_tokens.dtype != want:
+        raise TypeError(f"d_tokens has dtype {d_tokens.dtype}, expected {want}"
+                        + ("" if pack_spec is None else f" (pack mode {pack_spec.mode})"))
+    if pack_spec is not None and d_tokens.shape[1] != pack_spec.packed_width:
+        raise ValueError(
+            f"packed width {d_tokens.shape[1]} != spec {pack_spec.packed_width}"
+        )
 
 
 def lexical_scan_topk_ref(
     q_tokens: torch.Tensor,  # [n_q, L_q] int32, PAD_TOKEN-padded
     weights: torch.Tensor,  # [n_models, n_q, L_q] f32
     ab: torch.Tensor,  # [n_models, 2] f32
-    d_tokens: torch.Tensor,  # [n_d, L_d] int32, PAD_TOKEN-padded
+    d_tokens: torch.Tensor,  # [n_d, L_d] int32, PAD_TOKEN-padded — or packed [n_d, W]
     d_len: torch.Tensor,  # [n_d] int32
     *,
     modes: tuple[EpilogueMode, ...],
     k: int,
     block_d: int = 512,
     tile_d: int = 16,
+    pack_spec: PackSpec | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version -> ``(scores, ids) [n_models, n_q, k]``, ids local to
-    ``d_tokens`` (0-based), ``(-inf, -1)`` in empty slots."""
-    _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d)
+    ``d_tokens`` (0-based), ``(-inf, -1)`` in empty slots. With
+    ``pack_spec`` each block of ``block_d`` packed rows is unpacked to a
+    ``tile_d``-aligned width first, as the reference's kernel does, so
+    memory stays O(block)."""
+    _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d, pack_spec)
     n_q = q_tokens.shape[0]
     n_d = d_tokens.shape[0]
     n_models = weights.shape[0]
@@ -113,7 +135,11 @@ def lexical_scan_topk_ref(
     state_i = torch.full((n_models, n_q, k), -1, dtype=torch.int32, device=dev)
     eps = [LexicalEpilogue(weights[m], ab[m, 0], ab[m, 1]) for m in range(n_models)]
     for start in range(0, n_d, block_d):
-        tf = term_frequencies(q_tokens, d_tokens[start : start + block_d], tile_d=tile_d)
+        block = d_tokens[start : start + block_d]
+        if pack_spec is not None:
+            length = pack_spec.length
+            block = unpack_tokens(block, pack_spec, pad_to=length + (-length) % tile_d)
+        tf = term_frequencies(q_tokens, block, tile_d=tile_d)
         dlen = d_len[start : start + block_d]
         s = torch.stack([apply_epilogue(mode, ep, tf, dlen) for mode, ep in zip(modes, eps)])
         _, pos = torch.sort(sort_key(s), dim=-1, descending=True, stable=True)
@@ -133,28 +159,42 @@ WARPS = 16  # the kernel's CTA: 512 threads
 MAP_BYTES = 65536 // 8  # the query terms' bitmap
 
 
-def _smem_bytes(n_models: int, n_q: int, l_q: int, tile_docs: int, l_d: int, cap: int) -> int:
+def _buf_bytes(tile_docs: int, row_bytes: int) -> int:
+    """One staging buffer: a tile's bytes + 15 of alignment slack, in whole
+    16-byte units."""
+    return (tile_docs * row_bytes + 30) & ~15
+
+
+def row_bytes(l_d: int, pack_spec: PackSpec | None = None) -> int:
+    """Bytes of one stored token row of width ``l_d`` (the packed width
+    when packed)."""
+    return l_d * (4 if pack_spec is None else pack_spec.packed_dtype().itemsize)
+
+
+def _smem_bytes(n_models: int, n_q: int, l_q: int, tile_docs: int, row_b: int, cap: int) -> int:
     slots, lists = n_q * l_q, n_models * n_q
-    buf_ints = (tile_docs * l_d + 7) & ~3
     qwords = -(-n_q // 32)
     words = (
-        2 * buf_ints  # the staging ring
-        + 2 * _hash_size(slots) + slots + WARPS * slots  # term table, slot terms, counts
+        2 * _hash_size(slots) + slots + WARPS * slots  # term table, slot terms, counts
         + (slots + WARPS) * qwords  # each term's queries, each warp's row's queries
         + n_models * slots + lists + 3 * n_models  # weights, tf-0 sums, alpha/beta/mode
         + 4 * lists + 2  # thresholds (score, id), buffer counts, list lengths, 2 flags
     )
-    # + each list's r-th and k-th keys (8-byte aligned), each warp's flush scratch
-    return MAP_BYTES + 4 * words + 8 + 16 * lists + WARPS * next_pow2(cap) * 12
+    # + the staging ring, each list's r-th and k-th keys (8-byte aligned),
+    # each warp's flush scratch
+    return (2 * _buf_bytes(tile_docs, row_b) + MAP_BYTES + 4 * words + 8 + 16 * lists
+            + WARPS * next_pow2(cap) * 12)
 
 
 def _hash_size(slots: int) -> int:
     return max(32, next_pow2(2 * slots))
 
 
-def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int = 132) -> dict:
+def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int = 132,
+                    pack_spec: PackSpec | None = None) -> dict:
     """The kernel's launch shape for these sizes, or ValueError when it
-    cannot take them.
+    cannot take them. ``l_d`` is the stored row's width: the packed width
+    when ``pack_spec`` is given, whose dtype sizes the staging ring.
 
     One CTA per SM (``n_splits`` of them), taking the tiles in turn; a tile
     is ``tile_d`` rows rounded up to a whole warp. Queries go in as few groups
@@ -168,10 +208,11 @@ def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int
     if n_d + tile_docs * n_sms >= 2**31:  # ids and tile starts stay int32
         raise ValueError(f"{n_d} docs exceed the kernel's int32 doc ids")
     cap = 4 * tile_docs  # a buffer is flushed when one more tile could overflow it
+    row_b = row_bytes(l_d, pack_spec)
     n_splits = min(n_sms, -(-n_d // tile_docs))
     n_groups = 1
     group = n_q
-    while _smem_bytes(n_models, group, l_q, tile_docs, l_d, cap) > SMEM_LIMIT:
+    while _smem_bytes(n_models, group, l_q, tile_docs, row_b, cap) > SMEM_LIMIT:
         if group == 1:
             raise ValueError(
                 f"one query at L_q={l_q}, L_d={l_d}, tile_d={tile_d} with {n_models} models "
@@ -182,13 +223,13 @@ def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int
     return {
         "k_pad": next_pow2(k), "tile_docs": tile_docs, "cap": cap, "n_splits": n_splits, "group": group, "n_groups": n_groups, "flush_rows": block_d,
         "log2h": _hash_size(group * l_q).bit_length() - 1,
-        "smem": _smem_bytes(n_models, group, l_q, tile_docs, l_d, cap),
+        "smem": _smem_bytes(n_models, group, l_q, tile_docs, row_b, cap), "row_bytes": row_b,
         "merge_smem": merge_smem_bytes(next_pow2(k), n_splits),
     }
 
 
 # the C entry point's parameters, in order: p a pointer, i an int
-LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 14 + "p"
+LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 18 + "p"
 
 
 def _lib() -> ctypes.CDLL:
@@ -210,17 +251,26 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 
 def lexical_scan_topk_cuda(
-    q_tokens, weights, ab, d_tokens, d_len, *, modes, k: int, block_d: int, tile_d: int
+    q_tokens, weights, ab, d_tokens, d_len, *, modes, k: int, block_d: int, tile_d: int,
+    pack_spec: PackSpec | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on CUDA tensors (checked by the caller) ->
-    ``(scores, ids) [n_models, n_q, k]``. Raises on any build or launch error."""
-    _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d)
+    ``(scores, ids) [n_models, n_q, k]``. With ``pack_spec`` the kernel
+    stages the packed rows' bytes and decodes each token as it counts it.
+    Raises on any build or launch error."""
+    _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d, pack_spec)
     n_q, l_q = q_tokens.shape
     n_d, l_d = d_tokens.shape
     n_models = weights.shape[0]
     dev = d_tokens.device
     geo = launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d,
-                          torch.cuda.get_device_properties(dev).multi_processor_count)
+                          torch.cuda.get_device_properties(dev).multi_processor_count,
+                          pack_spec=pack_spec)
+    # the unpacked row length, the layout, its bit-planes and PAD sentinel
+    l_tok = l_d if pack_spec is None else pack_spec.length
+    pack = _PACK_CODE[None if pack_spec is None else pack_spec.mode]
+    bits = 0 if pack_spec is None else pack_spec.bits
+    sentinel = 0 if pack_spec is None else pack_spec.vocab
     lib = _lib()
     q_safe = safe_queries(q_tokens).contiguous()
     codes = torch.tensor(mode_codes(modes), dtype=torch.int32, device=dev)
@@ -240,10 +290,10 @@ def lexical_scan_topk_cuda(
         rc = lib.lexical_scan_launch(
             q_g.data_ptr(), w_g.data_ptr(), ab.data_ptr(), codes.data_ptr(),
             d_tokens.data_ptr(), d_len.data_ptr(), *(t.data_ptr() for t in state),
-            o_s.data_ptr(), o_i.data_ptr(), g, l_q, n_models, n_d, l_d, k, geo["k_pad"],
-            geo["cap"], geo["n_splits"], geo["tile_docs"],
-            geo["flush_rows"], geo["log2h"],
-            _smem_bytes(n_models, g, l_q, geo["tile_docs"], l_d, geo["cap"]),
+            o_s.data_ptr(), o_i.data_ptr(), g, l_q, n_models, n_d, l_tok, geo["row_bytes"],
+            pack, bits, sentinel, k, geo["k_pad"], geo["cap"], geo["n_splits"],
+            geo["tile_docs"], geo["flush_rows"], geo["log2h"],
+            _smem_bytes(n_models, g, l_q, geo["tile_docs"], geo["row_bytes"], geo["cap"]),
             geo["merge_smem"], stream,
         )
         _raise_on(lib, rc, "lexical_scan launch")

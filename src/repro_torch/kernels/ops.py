@@ -94,13 +94,14 @@ def lexical_scan_topk(
     ``modes`` is the tuple of `scoring.EpilogueMode`; build all three
     arguments from a scorer grid with `scoring.lexical_epilogues`.
     ``block_d``/``tile_d`` default to the active tuning's ``lex_block_d`` /
-    ``lex_tile_d`` (512 / 16 when untuned). Packed token tiles
-    (``pack_spec``) wait for the packing slice.
+    ``lex_tile_d`` (512 / 16 when untuned). With ``pack_spec`` (a
+    `packing.PackSpec`), ``d_tokens`` is the packed matrix ``[n_d,
+    pack_spec.packed_width]`` of the spec's dtype (uint8, uint16 or int32
+    bit-planes), as `packing.pack_tokens` makes it: the plain version
+    unpacks it block by block, the kernel decodes each tile on the card, and
+    the result is the unpacked call's, bit for bit. A launch counts under
+    ``lexical_scan_topk`` either way.
     """
-    if pack_spec is not None:
-        raise NotImplementedError(
-            "packed token tiles (pack_spec) wait for the packing slice of the port"
-        )
     if block_d is None or tile_d is None:
         cfg = tune_config.active().config
         if block_d is None:
@@ -112,7 +113,8 @@ def lexical_scan_topk(
         {"q_tokens": q_tokens, "weights": weights, "ab": ab,
          "d_tokens": d_tokens, "d_len": d_len},
         {"q_tokens": torch.int32, "weights": torch.float32, "ab": torch.float32,
-         "d_tokens": torch.int32, "d_len": torch.int32},
+         "d_tokens": torch.int32 if pack_spec is None else pack_spec.torch_dtype(),
+         "d_len": torch.int32},
     )
     if q_tokens.dim() != 2 or weights.dim() != 3 or d_tokens.dim() != 2:
         raise ValueError("lexical_scan_topk: q_tokens [n_q, L_q], weights "
@@ -120,13 +122,13 @@ def lexical_scan_topk(
     if dev.type == "cpu":
         return _lexical.lexical_scan_topk_ref(
             q_tokens, weights, ab, d_tokens, d_len,
-            modes=modes, k=k, block_d=block_d, tile_d=tile_d,
+            modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec,
         )
     if dev.type != "cuda":
         raise ValueError(f"lexical_scan_topk: no kernel for device {dev}")
     out = _lexical.lexical_scan_topk_cuda(
         q_tokens, weights, ab, d_tokens, d_len,
-        modes=modes, k=k, block_d=block_d, tile_d=tile_d,
+        modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec,
     )
     LAUNCHES["lexical_scan_topk"] += 1
     return out

@@ -16,12 +16,14 @@ segment under ``<out>/ckpt`` — kill the process mid-run and re-invoke with
 the same ``--out`` to resume bit-identically. ``--fault-spec
 crash:shard=S,segment=N[,phase=pre_commit]`` injects a crash
 (``--fail-at-segment`` is the deprecated single-crash alias).
+``--token-pack auto|8|16|bitpack`` packs the corpus segments
+(`repro_torch.core.packing`); the run files are the unpacked run's.
 
 Same flags as `repro.launch.experiment` plus ``--device`` (default
 ``cuda``). Not in this slice, and refused with a message: ``--pipeline``
 (the default here is ``--no-pipeline``), ``--max-workers``,
 ``--max-retries``, ``--speculative``, ``--fault-seed``, ``--tune``,
-``--tune-cache``, ``--token-pack`` and ``--bench``.
+``--tune-cache`` and ``--bench``.
 """
 
 from __future__ import annotations
@@ -131,7 +133,6 @@ def _refuse(args) -> None:
         ("--fault-seed", args.fault_seed is not None, "executor"),
         ("--tune", args.tune, "autotune"),
         ("--tune-cache", args.tune_cache is not None, "autotune"),
-        ("--token-pack", args.token_pack not in (None, "none"), "packing"),
         ("--bench", args.bench, "benchmark"),
     ]
     for flag, given, slice_name in pending:
@@ -202,10 +203,17 @@ def main(argv=None):
                          "(flat knob dict, see repro_torch.tune.save)")
     ap.add_argument("--token-pack", default=None,
                     choices=["none", "auto", "8", "16", "bitpack"],
-                    help="packed corpus segments (packing slice; only none here)")
+                    help="packed corpus segments (core.packing): store scan "
+                         "tokens at this width and decode on the consumer — "
+                         "fewer bytes staged/streamed, run files byte-"
+                         "identical to the unpacked run. Overrides the "
+                         "tuning config's token_pack knob")
     ap.add_argument("--bench", action="store_true",
                     help="models-per-pass amortization curve (benchmark slice)")
     args = ap.parse_args(argv)
+    if args.token_pack is not None and args.tune:
+        raise SystemExit("--token-pack and --tune are mutually exclusive "
+                         "(the cached winner already fixes token_pack)")
     _refuse(args)
 
     spec = _spec_from_args(args)
@@ -218,6 +226,9 @@ def main(argv=None):
 
     faults = build_schedule(args.fault_spec) if args.fault_spec else None
     tuning = tune.load(args.tuning_config) if args.tuning_config else None
+    if args.token_pack is not None:
+        base = tuning if tuning is not None else tune.TuningConfig()
+        tuning = base.replace(token_pack=args.token_pack)
 
     coll = runner.prepare_collection(spec, seed=args.seed, device=args.device)
     report = runner.run_experiment(

@@ -176,12 +176,17 @@ def serve_decode(n_tokens: int, arch: str = "gemma2-2b", batch: int = 4, device=
     step = tfm.make_serve_step(cfg, batch=batch)
     cache = tfm.init_cache(cfg, batch, n_tokens + 8, device=dev)
     tok = torch.ones((batch,), dtype=torch.int64, device=dev)
+    # the position lives on the device and advances there, as the
+    # reference's CLI passes jnp.asarray(t): no step waits for the host
+    t = torch.zeros((), dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
     outs = []
-    for t in range(n_tokens):
+    for _ in range(n_tokens):
         logits, cache = step(params, cache, tok, t)
         tok = torch.argmax(logits, dim=-1)
-        outs.append(int(tok[0]))
+        outs.append(tok[0])
+        t += 1
+    outs = torch.stack(outs).tolist()  # the one wait for the device
     dt = time.perf_counter() - t0
     print(f"decoded {n_tokens} tokens × {batch} sequences in {dt:.2f}s "
           f"({dt/n_tokens*1e3:.1f} ms/token); seq0: {outs}")

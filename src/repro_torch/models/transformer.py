@@ -229,10 +229,18 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
     """One-token decode over the KV cache.
 
     ``serve_step(params, cache, tokens [B], t) -> (logits [B,V] float32,
-    cache)``; ``t`` is the new token's position, a host int (a tensor is
-    read once). The cache is updated in place and returned. The step makes
-    one int32 tensor of ``t`` on the cache's device and hands it to every
-    layer's `ops.flash_decode`, whose kernel reads it on the card.
+    cache)``; ``t`` is the new token's position: a 0-d integer tensor on the
+    cache's device, as the reference's step takes it, or a host int. The
+    cache is updated in place and returned.
+
+    The step reads ``t`` on the device throughout: RoPE's angles come from
+    it, the cache write takes it as a device index (``index_copy_``) and
+    every layer's `ops.flash_decode` kernel reads it on the card, so with a
+    CUDA tensor nothing in the step waits for the host. A host int is
+    checked here (``0 <= t < S``) and then filled into such a tensor on the
+    device; a tensor is not checked on the host (the decode kernel flags a
+    position outside the cache, `flash_decode.take_error`). Any other
+    tensor (one element, on another device) is read as a host int.
     """
     _dense_only(cfg)
     windows = _layer_windows(cfg)
@@ -240,15 +248,23 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def serve_step(params, cache, tokens, t):
-        t = int(t)
         b = tokens.shape[0]
         if b != batch:
             raise ValueError(f"serve_step built for batch {batch}, got {b} tokens")
-        if not 0 <= t < cache["k"].shape[2]:
-            raise ValueError(f"position t={t} outside a cache of {cache['k'].shape[2]}")
+        dev = cache["k"].device
+        if isinstance(t, torch.Tensor) and t.device == dev:
+            if t.numel() != 1 or t.dtype.is_floating_point or t.dtype == torch.bool:
+                raise TypeError(f"t must be one integer, got {t.dtype} {tuple(t.shape)}")
+            t_dev = t.reshape(()).to(torch.int32)  # no copy for an int32 t
+        else:
+            t = int(t)
+            if not 0 <= t < cache["k"].shape[2]:
+                raise ValueError(f"position t={t} outside a cache of {cache['k'].shape[2]}")
+            t_dev = torch.full((), t, dtype=torch.int32, device=dev)
+        pos = t_dev.view(1)
         x = _embed(params, tokens, cfg)  # [B, D]
-        cos, sin = rope_angles(torch.tensor([t], device=x.device), hd, cfg.rope_theta)
-        t_dev = torch.full((), t, dtype=torch.int32, device=x.device)
+        cos, sin = rope_angles(pos, hd, cfg.rope_theta)
+        slot = pos.to(torch.int64)  # the cache write's index, on the device
         for i, windowed in enumerate(windows):
             lp = _layer(params, i)
             y = rms_norm(x, lp["attn_norm"], one_plus=cfg.rms_one_plus)
@@ -259,8 +275,8 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
             kn = apply_rope(kn, cos, sin)[:, 0]
             # the new token's K/V go into the cache first, in place: the
             # kernel then reads positions <= t, and no step copies the cache
-            cache["k"][i, :, t] = kn.to(cache["k"].dtype)
-            cache["v"][i, :, t] = vn.to(cache["v"].dtype)
+            cache["k"][i].index_copy_(1, slot, kn[:, None].to(cache["k"].dtype))
+            cache["v"][i].index_copy_(1, slot, vn[:, None].to(cache["v"].dtype))
             o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t_dev,
                                  window=_window(cfg) if windowed else None,
                                  cap=cfg.attn_softcap).to(dt)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import anchors, scan, topk
+from repro_torch.core import anchors, packing, pipeline, scan, topk
 from repro_torch.core.scoring import PAD_TOKEN, CollectionStats, Scorer, get_scorer
 from repro_torch.device import resolve_device
 from repro_torch.tune import config as tune_config
@@ -38,15 +38,35 @@ def _to_host(state: topk.TopKState) -> topk.TopKState:
     return topk.TopKState(scores=state.scores.cpu(), ids=state.ids.cpu())
 
 
+def _pack_resident(tokens, lengths, *, vocab: int | None, mode: str, device):
+    """The resident corpus of a lexical session on ``device``: the int32
+    ``(tokens, lengths)`` tuple, or a `packing.PackedCorpus` when ``mode``
+    resolves to a width for ``vocab``. The int32 matrix then never stays
+    on the card, only the narrow one, and each scan decodes its tiles with
+    bit-identical results. Packing needs the vocab (for the sentinel);
+    without one the corpus stays unpacked rather than fail."""
+    if mode != "none" and vocab is not None:
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+        packed = packing.pack_corpus(host(tokens), host(lengths), vocab=vocab, mode=mode)
+        if isinstance(packed, packing.PackedCorpus):
+            return packed.to(device)
+    return (torch.as_tensor(tokens, dtype=torch.int32, device=device),
+            torch.as_tensor(lengths, dtype=torch.int32, device=device))
+
+
 class LexicalSession:
     """Raw-token scan service state for one lexical scorer (ql_lm/bm25/...).
 
     Each block runs :func:`repro_torch.core.scan.search_local`: term
     frequencies recomputed from raw text, no index. ``tokens``/``lengths``
     may be numpy arrays or tensors; a tensor already on the session's device
-    stays where it is. Packed resident corpora (``token_pack`` other than
-    ``"none"``, passed in or set in the active tuning) wait for the packing
-    slice.
+    stays where it is. ``token_pack`` (passed in, or the active tuning's
+    when ``None``) keeps the resident corpus packed at the width it resolves
+    to (`packing.resolve_mode`), which the scan decodes tile by tile: fewer
+    resident bytes, the same answers. ``vocab`` defaults to the size of the
+    stats' ``cf`` table, as in the reference.
     """
 
     kind = "lexical"
@@ -71,29 +91,27 @@ class LexicalSession:
             raise ValueError(f"scorer {self.scorer.name!r} is not lexical")
         if token_pack is None:
             token_pack = tune_config.active().config.token_pack
-        if token_pack != "none":
-            raise NotImplementedError(
-                f"token_pack={token_pack!r}: packed resident corpora wait for the "
-                "packing slice of the port"
-            )
         self.device = resolve_device(device)
         self.use_kernel = use_kernel
         self.k = k
         self.chunk_size = chunk_size
-        tokens = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)
-        self._lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
-        if tokens.shape[0] % chunk_size:
-            raise ValueError(f"{tokens.shape[0]} docs not divisible by chunk {chunk_size}")
+        if len(tokens) % chunk_size:
+            raise ValueError(f"{len(tokens)} docs not divisible by chunk {chunk_size}")
         if stats is None:
             if vocab is None:
                 raise ValueError("need stats or vocab to derive collection statistics")
-            stats = anchors.collection_stats(
-                tokens, self._lengths, vocab=vocab, chunk_size=chunk_size
-            )
+            tokens = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)
+            lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+            stats = anchors.collection_stats(tokens, lengths, vocab=vocab, chunk_size=chunk_size)
         self._stats = CollectionStats(
             *(torch.as_tensor(x, device=self.device) for x in stats)
         )
-        self._docs = (tokens, self._lengths)
+        # the sentinel needs the vocab: the stats' cf table has one entry a term
+        if vocab is None:
+            vocab = int(self._stats.cf.shape[0])
+        self._docs = _pack_resident(tokens, lengths, vocab=vocab, mode=token_pack,
+                                    device=self.device)
+        self._lengths = pipeline.leaves(self._docs)[1]
 
     @property
     def n_docs(self) -> int:
@@ -101,13 +119,15 @@ class LexicalSession:
 
     @property
     def pack_mode(self) -> str:
-        """Resident storage: always ``none`` until the packing slice."""
+        """Resolved resident storage: ``none`` or the PackSpec mode."""
+        if isinstance(self._docs, packing.PackedCorpus):
+            return self._docs.spec.mode
         return "none"
 
     @property
     def resident_corpus_bytes(self) -> int:
         """Device bytes held by the resident corpus (tokens + lengths)."""
-        return sum(t.numel() * t.element_size() for t in self._docs)
+        return packing.tree_nbytes(self._docs)
 
     def search(self, q_block: np.ndarray) -> topk.TopKState:
         """Scan one padded query block; returns once the results are on the

@@ -2,9 +2,9 @@
 
 The port's copy of `repro.tune.config`, cut down to the knobs the ported
 slices read: the fold's ``chunk_size``, the checkpoints kept on disk, the
-lexical kernel's ``lex_block_d``/``lex_tile_d``, ``token_pack`` (only
-``"none"`` runs; the runner and the lexical session refuse the others until
-the packing slice), the dense kernel's ``dense_block_d`` and the serve
+lexical kernel's ``lex_block_d``/``lex_tile_d``, ``token_pack`` (packed
+corpus segments, `repro_torch.core.packing`: read by the runner and the
+lexical session), the dense kernel's ``dense_block_d`` and the serve
 microbatch triggers (``serve_max_batch``, ``serve_max_delay_s``,
 ``serve_min_bucket``, ``serve_max_bucket``) and the flash kernels' tiles
 (``flash_block_q``, ``flash_block_k``, ``decode_block_s``).
@@ -78,7 +78,9 @@ class TuningConfig:
     # bucket-ladder cap: blocks never pad past it, and larger takes split
     # into <= cap dispatches; None = uncapped
     serve_max_bucket: int | None = 128
-    token_pack: str = "none"  # packed corpus segments (packing slice)
+    # packed corpus segments (core.packing): "none" keeps int32 tokens,
+    # "auto" the narrowest width the vocab fits, "8"/"16"/"bitpack" force one
+    token_pack: str = "none"
     flash_block_q: int = 128  # flash attention query tile
     flash_block_k: int = 128  # flash attention key/value tile
     decode_block_s: int = 512  # cache positions per split-KV decode CTA

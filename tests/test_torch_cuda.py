@@ -5,15 +5,16 @@ no JAX (the machine with the card has none), so it runs there on its own:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
-The lexical scan must agree with its plain version to the bit; the dense
+The lexical scan must agree with its plain version to the bit, and its
+packed-tile path with the unpacked kernel on the unpacked tokens; the dense
 score + top-k within 1e-5 with ids equal except at float near-ties
 (`_torch_parity`, the plain ranking taken 8 places deeper), and to the bit
 on integer-valued inputs; the flash attention and decode kernels (every
 attention route; decode with ``t`` on the host and on the card, and
 replayed from a CUDA graph) within 3e-4 / 3e-5 in float32 and 3e-2 in
 bfloat16 (the reference's tolerances), and the reduced LM on the card
-within 1e-4 / 1e-5 of the CPU. ``chip_smoke.py`` makes the same checks at the
-full width.
+within 1e-4 / 1e-5 of the CPU; its serve step with ``t`` on the card makes
+no host sync. ``chip_smoke.py`` makes the same checks at the full width.
 """
 
 import numpy as np
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_rankings_close
-from repro_torch.core import anchors, scoring
+from repro_torch.core import anchors, packing, scoring
 from repro_torch.kernels import flash_attn, flash_decode, lexical_scan, ops, score_topk
 
 GRID = [
@@ -71,6 +72,71 @@ def test_cuda_kernel_matches_plain_version_bitwise():
         assert ops.LAUNCHES["lexical_scan_topk"] == before + 1
         assert torch.equal(ki, pi)
         assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+
+
+# n_d, L_d, vocab, token_pack, first row (rows before it sliced off), k, block_d, tile_d
+PACKED_CASES = [
+    (301, 23, 200, "8", 1, 37, 300, 16),  # uint8 rows starting off a 4-byte boundary
+    (2048, 128, 255, "auto", 0, 50, 512, 48),
+    (1025, 23, 60_000, "16", 1, 40, 512, 40),  # uint16 rows off a 4-byte boundary
+    (512, 300, 2048, "auto", 0, 30, 256, 32),
+    (1024, 23, 1, "bitpack", 0, 20, 256, 16),  # 1 bit: every token is term 0
+    (4096, 128, 65_536, "auto", 0, 100, 1024, 33),  # mirex's 17 bits
+    (2048, 300, 200_000, "auto", 0, 40, 512, 16),  # 18 bits
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PACKED_CASES, ids=lambda c: f"{c[3]}-v{c[2]}-L{c[1]}")
+def test_cuda_packed_kernel_matches_unpacked_kernel_bitwise(case):
+    """The packed-tile path (uint8 / uint16 rows, bit-planes) against the
+    unpacked kernel on the unpacked tokens and against the plain version:
+    equal to the bit, with zero-length rows and a launch counted each."""
+    dev = _card()
+    n_d, l_d, vocab, mode, first, k, block_d, tile_d = case
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    q, toks, lens = _lexical_inputs(800 + n_d, n_d, l_d, 9, 4, vocab, n_d // 10)
+    spec = packing.make_spec(vocab, l_d, mode)
+    d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
+    p = torch.as_tensor(packing.pack_tokens(toks, spec), device=dev)
+    d, dl, p = d[first:], dl[first:], p[first:]
+    stats = anchors.collection_stats(d, dl, vocab, chunk_size=d.shape[0])
+    modes, w, ab = scoring.lexical_epilogues(grid, qt, stats)
+    before = ops.LAUNCHES["lexical_scan_topk"]
+    ks, ki = ops.lexical_scan_topk(qt, w, ab, p, dl, modes=modes, k=k, block_d=block_d,
+                                   tile_d=tile_d, pack_spec=spec)
+    assert ops.LAUNCHES["lexical_scan_topk"] == before + 1
+    for other in (
+        ops.lexical_scan_topk(qt, w, ab, d, dl, modes=modes, k=k, block_d=block_d,
+                              tile_d=tile_d),
+        lexical_scan.lexical_scan_topk_ref(qt, w, ab, p, dl, modes=modes, k=k,
+                                           block_d=block_d, tile_d=tile_d, pack_spec=spec),
+    ):
+        assert torch.equal(ki, other[1])
+        assert torch.equal(ks.view(torch.int32), other[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_packed_lexical_session_matches_unpacked():
+    """A session with its corpus resident in 17-bit planes answers as the
+    unpacked session does, bit for bit, in the serving buckets."""
+    from repro_torch.data import synthetic
+    from repro_torch.serve import LexicalSession
+
+    _card()
+    corpus = synthetic.make_corpus(n_docs=16_384, vocab=65_536, max_len=128, seed=3)
+    kw = {"k": 1000, "chunk_size": 16_384, "vocab": 65_536}
+    plain = LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", **kw)
+    packed = LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", token_pack="auto", **kw)
+    assert packed.pack_mode == "bitpack"
+    assert packed.resident_corpus_bytes == 16_384 * (68 + 1) * 4
+    for n in (8, 128):
+        q = synthetic.make_queries(corpus, n_queries=n, seed=n)
+        before = ops.LAUNCHES["lexical_scan_topk"]
+        got, want = packed.search(q), plain.search(q)
+        assert ops.LAUNCHES["lexical_scan_topk"] == before + 2
+        assert torch.equal(got.ids, want.ids)
+        assert torch.equal(got.scores.view(torch.int32), want.scores.view(torch.int32))
 
 
 def _rows(seed, shape, dtype, dev):
@@ -403,3 +469,36 @@ def test_cuda_lm_serving_matches_the_cpu():
     for a, b in zip(results["cpu"][0], results["cuda"][0]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(results["cuda"][1], results["cpu"][1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_step_with_device_t_makes_no_host_sync():
+    """The reduced gemma2-2b on the card: steps with ``t`` a device int32
+    (advanced in place) run under ``set_sync_debug_mode("error")`` and give
+    the host-int steps' logits, tokens and cache bit for bit."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as tfm
+
+    dev = _card()
+    cfg = reduced_config("gemma2-2b")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = tfm.make_serve_step(cfg, batch=2)
+    caches = [tfm.init_cache(cfg, 2, 24, device=dev), tfm.init_cache(cfg, 2, 24, device=dev)]
+    tok_h = tok_d = torch.ones(2, dtype=torch.int64, device=dev)
+    t_dev = torch.zeros((), dtype=torch.int32, device=dev)
+    step(params, tfm.init_cache(cfg, 2, 24, device=dev), tok_d, t_dev)  # first calls: builds
+    torch.cuda.synchronize()
+    for t in range(12):
+        want, caches[0] = step(params, caches[0], tok_h, t)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, caches[1] = step(params, caches[1], tok_d, t_dev)
+            tok_d = torch.argmax(got, dim=-1)
+            t_dev.add_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        tok_h = torch.argmax(want, dim=-1)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), t
+        assert torch.equal(tok_d, tok_h), t
+    for name in ("k", "v"):
+        assert torch.equal(caches[0][name], caches[1][name])

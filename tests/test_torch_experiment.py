@@ -4,8 +4,9 @@ The ``smoke`` experiment runs through both ``run_experiment``s (the
 reference with its synchronous executor, the port with ``device="cpu"``):
 run files agree under the tolerance rule of `_torch_parity`, and the eval
 report agrees wherever the ids do. Within the port the artifacts are
-byte-identical at 1, 2 and 4 shards and across a crash and resume, and the
-port resumes a checkpoint directory the reference left behind.
+byte-identical at 1, 2 and 4 shards, across a crash and resume and under
+every ``token_pack`` mode, and the port resumes a checkpoint directory the
+reference left behind, packed or not.
 """
 
 import dataclasses
@@ -151,7 +152,7 @@ def test_cli_writes_the_same_artifacts(tmp_path, port_clean, capsys):
 
 @pytest.mark.parametrize(
     "flag", [["--pipeline"], ["--max-retries", "1"], ["--speculative"], ["--tune"],
-             ["--token-pack", "auto"], ["--bench"], ["--fault-seed", "3"]],
+             ["--bench"], ["--fault-seed", "3"]],
 )
 def test_cli_refuses_what_waits_for_later_slices(tmp_path, flag):
     with pytest.raises(SystemExit, match="slice of the port"):
@@ -162,10 +163,12 @@ def test_runner_refuses_what_waits_for_later_slices(tmp_path):
     from repro_torch.tune import TuningConfig
 
     for kw in ({"pipelined": True}, {"max_retries": 1}, {"speculative": True},
-               {"tune_lookup": True}, {"max_workers": 2},
-               {"tuning": TuningConfig(token_pack="bitpack")}):
+               {"tune_lookup": True}, {"max_workers": 2}):
         with pytest.raises(NotImplementedError, match="slice of the port"):
             runner.run_experiment(SMOKE, out_dir=str(tmp_path), device="cpu", **kw)
+    # token_pack runs now (the packing slice): its artifacts are checked below
+    packed = _run_port(tmp_path / "packed", tuning=TuningConfig(token_pack="bitpack"))
+    assert packed["job"]["tuning"]["pack_resolved"] == "bitpack"
     for kind in ("writer_error", "straggler", "dead_worker"):
         with pytest.raises(NotImplementedError, match="executor slice"):
             FaultSpec(kind, segment=0, shard=0)
@@ -245,3 +248,88 @@ def test_checkpoint_layout_is_the_references(tmp_path):
     assert ckpt.all_steps(str(tmp_path / "p")) == [5, 6]
     ckpt.replace_dir(str(tmp_path / "p"), str(tmp_path / "r"))
     assert ckpt.latest_step(str(tmp_path / "r")) == 6 and not (tmp_path / "p").exists()
+
+
+@pytest.mark.parametrize("token_pack, resolved", [("auto", "u16"), ("16", "u16"),
+                                                  ("bitpack", "bitpack")])
+def test_packed_runs_are_byte_identical(tmp_path, port_clean, token_pack, resolved):
+    """Packing changes bytes moved, never bytes written: the smoke run under
+    each pack mode, crashed after its first segment and resumed, writes the
+    unpacked run's files."""
+    from repro_torch.tune import TuningConfig
+
+    out, clean = port_clean
+    tuning = TuningConfig(token_pack=token_pack)
+    with pytest.raises(WorkerCrash, match="injected failure"):
+        _run_port(tmp_path, tuning=tuning, fail_at_segment=0)
+    report = _run_port(tmp_path, tuning=tuning)
+    assert report["job"]["resumed_from"] == 1 and report["job"]["segments_run"] == 1
+    assert report["job"]["tuning"]["token_pack"] == token_pack
+    assert report["job"]["tuning"]["pack_resolved"] == resolved
+    assert _runs(tmp_path) == _runs(out)
+    assert report["metrics"] == clean["metrics"]
+
+
+def test_packed_job_fingerprint_is_the_references():
+    """The scan job's resume guard hashes a packed corpus's leaves (packed
+    tokens, then lengths) as the reference's pytree has them."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.cluster import job as ref_job
+    from repro.core import packing as ref_packing
+    from repro.core import scoring as ref_scoring
+    from repro_torch.core import packing, scoring
+
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 3000, size=(256, 24)).astype(np.int32)
+    toks[:, 20:] = -1
+    lens = np.full(256, 20, np.int32)
+    q = rng.integers(0, 3000, size=(5, 4)).astype(np.int32)
+    for mode in ("auto", "bitpack"):
+        ref_docs = ref_packing.pack_corpus(toks, lens, vocab=3000, mode=mode)
+        docs = packing.pack_corpus(toks, lens, vocab=3000, mode=mode).to("cpu")
+        want = ref_job._job_fingerprint(
+            jnp.asarray(q), ref_docs, [ref_scoring.get_scorer("bm25")], 10, 64, 2, 0, None)
+        got = port_job._job_fingerprint(
+            torch.as_tensor(q), docs, [scoring.get_scorer("bm25")], 10, 64, 2, 0, None)
+        assert got == want
+        unpacked = port_job._job_fingerprint(
+            torch.as_tensor(q), (torch.as_tensor(toks), torch.as_tensor(lens)),
+            [scoring.get_scorer("bm25")], 10, 64, 2, 0, None)
+        assert got != unpacked  # a packed checkpoint never resumes an unpacked job
+
+
+def test_port_resumes_a_reference_packed_checkpoint(tmp_path, port_clean):
+    from repro.tune import TuningConfig as RefTuningConfig
+    from repro_torch.tune import TuningConfig
+
+    spec = dataclasses.replace(SMOKE, segment_chunks=1)
+    ref_spec = dataclasses.replace(REF_SMOKE, segment_chunks=1)
+    with pytest.raises(RefWorkerCrash):
+        _run_ref(tmp_path, ref_spec, faults=RefFaultSchedule.from_legacy(1, 0),
+                 tuning=RefTuningConfig(token_pack="bitpack"))
+    assert ckpt.latest_step(str(tmp_path / "ckpt")) == 2
+    report = _run_port(tmp_path, spec, tuning=TuningConfig(token_pack="bitpack"))
+    assert report["job"]["resumed_from"] == 2 and report["job"]["segments_run"] == 2
+    assert report["job"]["tuning"]["pack_resolved"] == "bitpack"
+    out, clean = port_clean
+    for model in report["models"]:
+        ids, scores, _ = trec.read_run(report["runs"][model])
+        c_ids, c_scores, _ = trec.read_run(clean["runs"][model])
+        assert_rankings_close(scores, ids, c_scores, c_ids, what=model)
+
+
+def test_cli_token_pack_writes_the_unpacked_artifacts(tmp_path, port_clean):
+    out, report = port_clean
+    cli.main(["--experiment", "smoke", "--out", str(tmp_path), "--device", "cpu", "--no-trace",
+              "--token-pack", "auto"])
+    cli_dir = tmp_path / "smoke"
+    assert _runs(cli_dir) == _runs(out)
+    with open(cli_dir / "report.json") as f:
+        got = json.load(f)
+    assert got["metrics"] == report["metrics"]
+    assert got["job"]["tuning"]["pack_resolved"] == "u16"
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main(["--experiment", "smoke", "--out", str(tmp_path), "--device", "cpu",
+                  "--token-pack", "auto", "--tune"])

@@ -4,9 +4,11 @@ On the CPU the port's `ops.lexical_scan_topk` runs its plain PyTorch
 version; the reference's `ops.lexical_scan_topk` runs its Pallas kernel in
 interpret mode, as the reference's own tests run it. Same numpy inputs, made
 from a seed, through both: scores within 1e-5 and ids equal except at float
-near-ties (`_torch_parity`). The CUDA kernel itself is held against the
-plain version on the card by ``tests/test_torch_cuda.py`` (and by
-``chip_smoke.py``).
+near-ties (`_torch_parity`). Packed token matrices (``pack_spec``: uint8,
+uint16 and int32 bit-planes) go through both the same way, and within the
+port the packed plain version must equal the unpacked one bit for bit. The
+CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_cuda.py`` (and by ``chip_smoke.py``).
 """
 
 import jax.numpy as jnp
@@ -16,12 +18,13 @@ import torch
 
 from _torch_parity import assert_rankings_close
 from repro.core import anchors as ref_anchors
+from repro.core import packing as ref_packing
 from repro.core import scan as ref_scan
 from repro.core import scoring as ref_scoring
 from repro.core import topk as ref_topk
 from repro.kernels import ops as ref_ops
 from repro_torch import convert
-from repro_torch.core import scan, scoring
+from repro_torch.core import packing, pipeline, scan, scoring
 from repro_torch.kernels import lexical_scan, ops
 
 GRID = [
@@ -50,21 +53,30 @@ def _inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty):
     return q, toks, lens
 
 
-def _both(q, toks, lens, vocab, *, k, block_d, tile_d):
+def _both(q, toks, lens, vocab, *, k, block_d, tile_d, pack=None):
+    """The reference's kernel (interpret mode) and the port's plain version
+    on the same inputs; with ``pack`` (a token_pack mode) both take the
+    reference's packed matrix and spec."""
     ref_grid, port_grid = _grids()
     ref_stats = ref_anchors.collection_stats(
         jnp.asarray(toks), jnp.asarray(lens), vocab=vocab, chunk_size=toks.shape[0]
     )
     modes, w, ab = ref_scoring.lexical_epilogues(ref_grid, jnp.asarray(q), ref_stats)
+    ref_spec = spec = None
+    d = toks
+    if pack is not None:
+        ref_spec = ref_packing.make_spec(vocab, toks.shape[1], pack)
+        spec = packing.make_spec(vocab, toks.shape[1], pack)
+        d = ref_packing.pack_tokens(toks, ref_spec)
     want = ref_ops.lexical_scan_topk(
-        jnp.asarray(q), w, ab, jnp.asarray(toks), jnp.asarray(lens),
-        modes=modes, k=k, block_d=block_d, tile_d=tile_d,
+        jnp.asarray(q), w, ab, jnp.asarray(d), jnp.asarray(lens),
+        modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=ref_spec,
     )
     # the port on the reference's own epilogue tables, carried across
     p_modes, p_w, p_ab = convert.epilogues_from_numpy(modes, np.asarray(w), np.asarray(ab))
     got = ops.lexical_scan_topk(
-        torch.tensor(q), p_w, p_ab, torch.tensor(toks), torch.tensor(lens),
-        modes=p_modes, k=k, block_d=block_d, tile_d=tile_d,
+        torch.tensor(q), p_w, p_ab, torch.as_tensor(d), torch.tensor(lens),
+        modes=p_modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=spec,
     )
     return got, want
 
@@ -91,6 +103,21 @@ def test_plain_scan_matches_reference_kernel(case):
     zero = set(np.flatnonzero(lens == 0).tolist())
     assert not zero & set(gi[gi >= 0].tolist())
     assert ((gi == -1) == torch.isneginf(gs)).all()
+
+
+@pytest.mark.parametrize("pack", ["8", "16", "bitpack"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
+def test_packed_plain_scan_matches_reference_kernel(case, pack):
+    """The packed path (the reference's Pallas kernel decoding the packed
+    tile in interpret mode; the port's plain version unpacking each block)
+    under the parity rule, and bit-equal to the port's unpacked call."""
+    name, seed, n_d, l_d, n_q, l_q, vocab, n_empty, k, block_d, tile_d = case
+    q, toks, lens = _inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty)
+    (gs, gi), (ws, wi) = _both(q, toks, lens, vocab, k=k, block_d=block_d, tile_d=tile_d,
+                               pack=pack)
+    assert_rankings_close(gs.numpy(), gi.numpy(), ws, wi, what=f"{name} {pack}")
+    (us, ui), _ = _both(q, toks, lens, vocab, k=k, block_d=block_d, tile_d=tile_d)
+    assert torch.equal(gi, ui) and torch.equal(gs.view(torch.int32), us.view(torch.int32))
 
 
 def test_block_geometry_changes_no_bit():
@@ -175,8 +202,26 @@ def test_wrapper_checks_its_arguments():
         ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes * 2, k=2, block_d=8)
     with pytest.raises(ValueError, match="divisible"):
         ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes, k=2, block_d=3)
-    with pytest.raises(NotImplementedError, match="packing slice"):
-        ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes, k=2, pack_spec=object())
+    # a packed matrix must have the spec's width and dtype, in either version
+    spec = packing.make_spec(8, 4, "auto")  # u8, 4 columns
+    packed = torch.as_tensor(packing.pack_tokens(d.numpy(), spec))
+    got = ops.lexical_scan_topk(q, w, ab, packed, dl, modes=modes, k=2, block_d=8,
+                                pack_spec=spec)
+    want = ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes, k=2, block_d=8)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    with pytest.raises(TypeError, match="dtype"):
+        ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes, k=2, block_d=8, pack_spec=spec)
+    wide = packing.make_spec(8, 5, "auto")
+    with pytest.raises(ValueError, match="packed width 4 != spec 5"):
+        ops.lexical_scan_topk(q, w, ab, packed, dl, modes=modes, k=2, block_d=8,
+                              pack_spec=wide)
+    for version in (lexical_scan.lexical_scan_topk_ref, lexical_scan.lexical_scan_topk_cuda):
+        with pytest.raises(TypeError, match="pack mode u8"):
+            version(q, w, ab, d, dl, modes=modes, k=2, block_d=8, tile_d=16, pack_spec=spec)
+        with pytest.raises(ValueError, match="packed width"):
+            version(q, w, ab, packed, dl, modes=modes, k=2, block_d=8, tile_d=16,
+                    pack_spec=wide)
 
 
 def test_launch_geometry():
@@ -206,3 +251,48 @@ def test_launch_geometry():
         scoring.EpilogueMode("bm25"),
         scoring.EpilogueMode("tfidf", length_norm="rsqrt"),
     )) == [4, 1, 10]
+
+
+def test_launch_geometry_sizes_the_ring_from_packed_bytes():
+    """A packed row stages as its bytes: 68 int32 words a row for mirex's
+    17-bit planes at L 128, 23 bytes a row in uint8."""
+    spec = packing.make_spec(65_536, 128, "auto")
+    assert spec.mode == "bitpack" and spec.packed_width == 68
+    packed = lexical_scan.launch_geometry(5, 64, 4, 262_144, 68, 1000, 16_384, 16,
+                                          pack_spec=spec)
+    plain = lexical_scan.launch_geometry(5, 64, 4, 262_144, 128, 1000, 16_384, 16)
+    assert packed["row_bytes"] == 68 * 4 and plain["row_bytes"] == 128 * 4
+    assert plain["smem"] - packed["smem"] == 2 * (32 * 512 - 32 * 272)
+    u8 = lexical_scan.launch_geometry(1, 4, 4, 300, 23, 10, 100, 16,
+                                      pack_spec=packing.make_spec(200, 23, "auto"))
+    assert u8["row_bytes"] == 23 and u8["smem"] <= lexical_scan.SMEM_LIMIT
+
+
+def test_scan_takes_a_packed_corpus():
+    """search_local_multi on a PackedCorpus (segments sliced by the scan job
+    keep their spec) equals the unpacked scan bit for bit; a dense scorer
+    on a packed corpus is refused."""
+    vocab = 40
+    q, toks, lens = _inputs(10, 256, 23, 6, 4, vocab, 16)
+    _, port_grid = _grids()
+    stats = convert.stats_from_numpy([np.asarray(x) for x in ref_anchors.collection_stats(
+        jnp.asarray(toks), jnp.asarray(lens), vocab=vocab, chunk_size=64)])
+    plain = scan.search_local_multi(
+        torch.tensor(q), (torch.tensor(toks), torch.tensor(lens)), port_grid,
+        k=20, chunk_size=64, stats=stats)
+    for mode in ("8", "16", "bitpack"):
+        docs = packing.pack_corpus(toks, lens, vocab=vocab, mode=mode).to("cpu")
+        got = scan.search_local_multi(torch.tensor(q), docs, port_grid, k=20, chunk_size=64,
+                                      stats=stats)
+        assert torch.equal(got.ids, plain.ids)
+        assert torch.equal(got.scores.view(torch.int32), plain.scores.view(torch.int32))
+        tail = scan.search_local_multi(
+            torch.tensor(q), pipeline.tree_map(lambda x: x[128:], docs), port_grid, k=20,
+            chunk_size=64, stats=stats, doc_id_offset=128)
+        want = scan.search_local_multi(
+            torch.tensor(q), (torch.tensor(toks[128:]), torch.tensor(lens[128:])), port_grid,
+            k=20, chunk_size=64, stats=stats, doc_id_offset=128)
+        assert torch.equal(tail.ids, want.ids)
+    with pytest.raises(ValueError, match="packed corpus holds tokens"):
+        scan.search_local(torch.zeros((2, 8)), docs, scoring.get_scorer("dense_dot"), k=2,
+                          chunk_size=64)

@@ -312,6 +312,29 @@ def test_forward_matches_the_reference(arch, mesh):
     assert float(aux) == float(raux) == 0.0
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_step_takes_t_as_a_tensor(arch):
+    """``t`` as a 0-d int32 tensor on the cache's device (advanced in place,
+    as the decode CLI does) gives the host-int step's logits and cache bit
+    for bit, through 12 steps past the window of 8."""
+    cfg = configs.reduced_config(arch)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(5))
+    step = tfm.make_serve_step(cfg, batch=2)
+    caches = [tfm.init_cache(cfg, 2, 16), tfm.init_cache(cfg, 2, 16)]
+    toks = [torch.ones(2, dtype=torch.int64)] * 2
+    t_dev = torch.zeros((), dtype=torch.int32)
+    for t in range(12):
+        want, caches[0] = step(params, caches[0], toks[0], t)
+        got, caches[1] = step(params, caches[1], toks[1], t_dev)
+        t_dev += 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), f"{arch} t={t}"
+        toks = [torch.argmax(want, dim=-1), torch.argmax(got, dim=-1)]
+    for name in ("k", "v"):
+        assert torch.equal(caches[0][name], caches[1][name])
+    with pytest.raises(TypeError, match="one integer"):
+        step(params, caches[1], toks[1], torch.tensor(3.0))
+
+
 def test_serve_step_refuses_what_it_cannot_take():
     cfg = configs.reduced_config("gemma2-2b")
     params = tfm.init_params(cfg)

@@ -267,6 +267,36 @@ def _lexical(k, device="cpu", vocab=256, n_docs=512, chunk=64):
     return corpus, ref, port
 
 
+@pytest.mark.parametrize("token_pack", ["auto", "16", "bitpack"])
+def test_packed_lexical_session_answers_as_the_unpacked_one(token_pack):
+    """A packed resident corpus gives the unpacked session's answers bit for
+    bit and the reference's packed session's under the parity rule; its
+    resolved mode and resident bytes are the reference's."""
+    k, chunk, vocab = 10, 64, 3000
+    corpus = ref_synthetic.make_corpus(n_docs=512, vocab=vocab, max_len=24, seed=1)
+    stats = ref_anchors.collection_stats(jnp.asarray(corpus.tokens), jnp.asarray(corpus.lengths),
+                                         vocab=vocab, chunk_size=chunk)
+    ref = ref_serve.LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", k=k + DEEPER,
+                                   chunk_size=chunk, stats=stats, token_pack=token_pack)
+    port_stats = convert.stats_from_numpy([np.asarray(x) for x in stats])
+    packed = port_serve.LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", k=k,
+                                       chunk_size=chunk, stats=port_stats,
+                                       token_pack=token_pack, device="cpu")
+    plain = port_serve.LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", k=k,
+                                      chunk_size=chunk, stats=port_stats, device="cpu")
+    assert packed.pack_mode == ref.pack_mode == ("bitpack" if token_pack == "bitpack" else "u16")
+    assert packed.resident_corpus_bytes == ref.resident_corpus_bytes
+    assert packed.resident_corpus_bytes < plain.resident_corpus_bytes == 512 * 24 * 4 + 512 * 4
+    queries = ref_mb.pad_rows(synthetic.make_queries(corpus, n_queries=13, seed=3), 16,
+                              plain.pad_value)
+    got, base = packed.search(queries), plain.search(queries)
+    assert torch.equal(got.ids, base.ids)
+    assert torch.equal(got.scores.view(torch.int32), base.scores.view(torch.int32))
+    want = ref.search(queries)
+    assert_rankings_close(got.scores, got.ids, np.asarray(want.scores), np.asarray(want.ids),
+                          what=f"packed lexical session {token_pack}")
+
+
 def _serve(session, kind, queries, **kw):
     clock = ManualClock()
     service = port_serve.RetrievalService({kind: session}, clock=clock, **kw)
@@ -395,15 +425,17 @@ def test_what_waits_for_later_slices_says_so():
         port_serve.ShardedLexicalSession(None, None, None, "ql_lm", k=1, chunk_size=1)
     tokens = np.zeros((64, 4), np.int32)
     lens = np.full(64, 4, np.int32)
-    with pytest.raises(NotImplementedError, match="packing slice"):
-        port_serve.LexicalSession(tokens, lens, "ql_lm", k=2, chunk_size=64, vocab=8,
-                                  token_pack="auto", device="cpu")
+    # packed resident corpora run now (the packing slice), from the argument
+    # or from the active tuning's knob
+    packed = port_serve.LexicalSession(tokens, lens, "ql_lm", k=2, chunk_size=64, vocab=8,
+                                       token_pack="auto", device="cpu")
+    assert packed.pack_mode == "u8" and packed.resident_corpus_bytes == 64 * 4 + 64 * 4
     from repro_torch import tune
 
     with tune.use(tune.TuningConfig(token_pack="16")):
-        with pytest.raises(NotImplementedError, match="packing slice"):
-            port_serve.LexicalSession(tokens, lens, "ql_lm", k=2, chunk_size=64, vocab=8,
-                                      device="cpu")
+        tuned = port_serve.LexicalSession(tokens, lens, "ql_lm", k=2, chunk_size=64, vocab=8,
+                                          device="cpu")
+    assert tuned.pack_mode == "u16" and tuned.resident_corpus_bytes == 64 * 4 * 2 + 64 * 4
     with pytest.raises(ValueError, match="not dense"):
         port_serve.DenseSession(np.zeros((64, 4), np.float32), "bm25", k=2, chunk_size=64,
                                 device="cpu")
