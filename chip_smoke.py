@@ -49,14 +49,39 @@ code (nothing is caught and passed over):
 4. ``experiment`` the ``bm25-grid`` experiment at the ``mirex`` width
                   (2^23 docs x 128 tokens, vocab 65,536, 64 queries, k 1000,
                   5 models, 32 segments) through `runner.run_experiment` on
-                  the card; every segment must launch the scan kernel.
-                  Then the same run with ``token_pack="auto"`` (17-bit
-                  planes) on the same collection: run files and checkpoint
-                  bytes identical to the unpacked run's, one launch a
-                  segment.
+                  the card, first on the synchronous executor
+                  (``pipelined=False``), then on the pipelined one
+                  (``experiment.pipelined``: streamed segments, asynchronous
+                  checkpoints); every segment must launch the scan kernel
+                  once, and the pipelined run's files and checkpoint bytes
+                  must be the synchronous run's. Each run reports its scan
+                  span, docs/s, its busy share (the kernel calls' CUDA-event
+                  time, on the stream each ran on, over that span), the
+                  executor's spans and its peak device memory. Then the
+                  same run with ``token_pack="auto"`` (17-bit planes) on the
+                  same collection: run files and checkpoint bytes identical
+                  to the unpacked run's, one launch a segment. Then
+                  ``experiment.streamed``: `run_sharded_scan_job` over the
+                  same corpus kept on the host (pinned once, before the
+                  scan), streamed to the card by `prefetch_segments`, and
+                  ``experiment.job``: the same job over the corpus on the
+                  card. Both states and checkpoints must be the runner's
+                  bit for bit; the streamed run's device memory above the
+                  collection must stay within the device-resident job's
+                  plus (prefetch_depth + 1) segments plus half a segment.
+                  Then ``experiment.pipelined_again``: the pipelined runner
+                  once more (the same files), and `torch.profiler` over one
+                  device-resident job: the device time a segment of the scan
+                  kernel, its list merge and everything else.
 5. ``resume``     the ``smoke`` experiment crashed after its first segment,
-                  then resumed: run files byte-identical to an
-                  uninterrupted run.
+                  then resumed, on the synchronous and on the pipelined
+                  executor: run files byte-identical to an uninterrupted
+                  run. Then the reliability layer on two scheduler workers
+                  (two CUDA streams on the one card), 4 shards of 2
+                  segments: seeded chaos schedules (seeds 0 and 1; retries
+                  and speculation), a writer error that retries, each with
+                  the clean run's files byte for byte, and a permanent crash
+                  that surfaces its original error.
 6. ``serve``      retrieval serving through `RetrievalService`: a
                   `DenseSession` over the ``dense_scan`` shape (2^24 docs x
                   256 dims, float32, 16 GiB resident; 4,096 queries, k 1000)
@@ -1054,12 +1079,192 @@ def _check_runs(report, n_docs: int, k: int) -> None:
             raise AssertionError(f"{model}: a ranking repeats a document")
 
 
+class _KernelTime:
+    """Device time of a run's scan-kernel calls: a CUDA event pair around
+    each call of the kernel wrapper (its scan and merge kernels), recorded
+    on the stream the call launches on (the worker's stream under the
+    pipelined executor). Wraps ``ops.lexical_scan_topk`` for the ``with``
+    body; it counts nothing and changes no argument or result."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        self.pairs = []
+        self._real = real = ops.lexical_scan_topk
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kwargs)
+            stop.record()
+            self.pairs.append((start, stop))
+            return out
+
+        ops.lexical_scan_topk = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.lexical_scan_topk = self._real
+        return False
+
+    def seconds(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
+def _device_profile(fn) -> dict:
+    """``fn()`` under `torch.profiler`: wall seconds (profiling adds host
+    time), the device's busy seconds (the sum of its activities' device
+    time; activities of several streams may overlap) and every device
+    activity as ``(name, seconds, calls)``, longest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    # device activity only (kernels, copies); the host ops that launched
+    # them and CUPTI's "Command Buffer Full" waits carry the same time
+    rows = [(e.key, e.self_device_time_total * 1e-6, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != "Command Buffer Full"]
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_s": wall, "device_busy_s": sum(r[1] for r in rows), "rows": rows}
+
+
+def _span_totals(phases: dict, names) -> dict:
+    """Total seconds of each named span over every label of a phase rollup."""
+    return {n: sum(agg[n]["total_s"] for agg in phases.values() if n in agg) for n in names}
+
+
+PIPELINE_SPANS = ("segment.prefetch_wait", "segment.fold", "segment.commit",
+                  "segment.commit_submit", "ckpt.drain_wait", "ckpt.save")
+
+
+def _ckpt_files(root) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def _via_runner(spec, coll, out, **kw):
+    """The lifecycle through `runner.run_experiment` on the card: a callable
+    giving its report and the scan's measures (the ``experiment.scan`` span,
+    the job's segments, phase rollup and counters) from the report."""
+    from repro_torch.experiments import runner
+
+    def run():
+        report = runner.run_experiment(spec, out_dir=out, seed=0, collection=coll, device="cuda",
+                                       trace_out=os.path.join(out, "trace.json"), **kw)
+        job = report["job"]
+        phases = job["obs"]["phases"]
+        return report, {"pipelined": job["pipelined"], "segments": job["segments_total"],
+                        "segments_run": job["segments_run"],
+                        "scan_s": phases["(global)"]["experiment.scan"]["total_s"],
+                        "phases": phases, "counters": job["obs"]["metrics"]["counters"]}
+    return run
+
+
+def _via_job(spec, corpus, queries, stats, out):
+    """`run_sharded_scan_job` alone (pipelined, one device, no eval) over
+    ``corpus``: a callable giving its result and its measures, the span
+    being the call's wall time up to a device synchronisation."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.cluster import run_sharded_scan_job
+    from repro_torch.obs import export
+
+    def run():
+        with obs.session() as (tr, met):
+            t1 = time.monotonic()
+            job = run_sharded_scan_job(
+                queries, corpus, spec.scorers(), k=spec.k, chunk_size=spec.chunk_size,
+                segment_chunks=spec.segment_chunks, stats=stats, ckpt_dir=out,
+                devices=["cuda"], pipelined=True,
+            )
+            torch.cuda.synchronize()
+            scan_s = time.monotonic() - t1
+        return job, {"pipelined": True, "segments": job.segments_total,
+                     "segments_run": job.segments_run, "scan_s": scan_s,
+                     "phases": export.phase_rollup(tr), "counters": met.summary()["counters"]}
+    return run
+
+
+def _timed(run, n_docs: int, out: str):
+    """``run()`` (from `_via_runner` or `_via_job`, writing under ``out``)
+    on the card under the instruments: one launch of the scan kernel a
+    segment run (checked), the scan span and docs/s, the busy share (the
+    kernel calls' CUDA-event time over the span), the executor's spans and
+    counters, and the peak device memory, in all and above what was
+    allocated before the run (the prepared collection)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t1 = time.monotonic()
+    with _KernelTime() as kt:
+        result, m = run()
+    wall_s = time.monotonic() - t1
+    launches = ops.LAUNCHES["lexical_scan_topk"]
+    if launches != m["segments_run"]:
+        raise AssertionError(f"{launches} kernel launches for {m['segments_run']} segments run")
+    kernel_s = kt.seconds()
+    peak = torch.cuda.max_memory_allocated()
+    counters = m.pop("counters")
+    return result, {
+        **m, "launches": launches, "wall_s": wall_s, "docs_per_s": n_docs / m["scan_s"],
+        "kernel_device_s": kernel_s, "busy_share": kernel_s / m["scan_s"],
+        "spans_s": _span_totals(m["phases"], PIPELINE_SPANS),
+        "ckpt_written_bytes": counters.get("ckpt.written_bytes"),
+        "staged_bytes": counters.get("pipeline.staged_bytes"),
+        "max_memory_allocated": peak, "peak_above_base": peak - base,
+    }
+
+
+def _scan_profile(run, segments: int) -> dict:
+    """Where a pipelined scan's device time goes, from one `torch.profiler`
+    trace of ``run()``: the scan kernel, its list merge, and every other
+    device activity (the fold's state merge and epilogue weights, the
+    snapshot copies), each in ms a segment, with the top activities."""
+    prof = _device_profile(run)
+    rows = prof["rows"]
+    scan = sum(d for k, d, _ in rows if "lexical_scan_kernel" in k)
+    merge = sum(d for k, d, _ in rows if "lexical_scan_merge" in k)
+    ms = 1e3 / segments
+    return {"wall_s": prof["wall_s"], "device_busy_s": prof["device_busy_s"],
+            "ms_per_segment": {"device": prof["device_busy_s"] * ms, "scan_kernel": scan * ms,
+                               "list_merge_kernel": merge * ms,
+                               "rest": (prof["device_busy_s"] - scan - merge) * ms},
+            "top": [{"kernel": k[:120], "s": d, "calls": c} for k, d, c in rows[:12]]}
+
+
 def phase_experiment(ctx) -> None:
+    import numpy as np
     import torch
 
     from repro_torch.experiments import grid as exp_grid
     from repro_torch.experiments import runner
-    from repro_torch.kernels import ops
     from repro_torch.tune import TuningConfig
 
     spec = dataclasses.replace(
@@ -1067,111 +1272,228 @@ def phase_experiment(ctx) -> None:
         n_docs=1 << 23, n_queries=64, vocab=65_536, max_doc_len=128, k=1000,
         chunk_size=16_384, segment_chunks=16, n_shards=1,
     )
-    out = os.path.join(OUT, "bm25-grid")
-    shutil.rmtree(out, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     coll = runner.prepare_collection(spec, seed=0, device="cuda")
     prepare_s = time.monotonic() - t0
-    ops.reset_launches()
-    t1 = time.monotonic()
-    report = runner.run_experiment(
-        spec, out_dir=out, seed=0, collection=coll, device="cuda",
-        trace_out=os.path.join(out, "trace.json"),
-    )
-    lifecycle_s = time.monotonic() - t1
-    launches = ops.LAUNCHES["lexical_scan_topk"]
-    n_segments = report["job"]["segments_total"]
-    if launches != n_segments:
-        raise AssertionError(f"{launches} kernel launches for {n_segments} segments")
+    prepare_peak = torch.cuda.max_memory_allocated()
+    n = spec.n_docs
+
+    # the synchronous executor, as in the earlier slices
+    out = os.path.join(OUT, "bm25-grid")
+    report, sync = _timed(_via_runner(spec, coll, out, pipelined=False), n, out)
     _check_runs(report, spec.n_docs, spec.k)
-    phases = report["job"]["obs"]["phases"]
-    scan_s = phases["(global)"]["experiment.scan"]["total_s"]
-    ctx["launches"]["lexical_scan_topk"] = launches
+    ctx["launches"]["lexical_scan_topk"] = sync["launches"]
     ctx["collection"] = coll  # the serve phase's lexical session scans this corpus
     emit("experiment", experiment=spec.name, n_docs=spec.n_docs, n_queries=spec.n_queries,
          vocab=spec.vocab, doc_len=spec.max_doc_len, k=spec.k, models=report["models"],
-         segments=n_segments, launches=launches, prepare_s=prepare_s,
-         lifecycle_s=lifecycle_s, scan_s=scan_s, docs_per_s=spec.n_docs / scan_s,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         prepare_s=prepare_s, prepare_max_memory_allocated=prepare_peak, **sync,
          map={m: v["map"] for m, v in report["metrics"].items()},
-         p_at_10={m: v["p@10"] for m, v in report["metrics"].items()},
-         phases=phases, nvidia_smi=ctx["smi"])
+         p_at_10={m: v["p@10"] for m, v in report["metrics"].items()}, nvidia_smi=ctx["smi"])
+
+    # the pipelined executor on the same collection: the same run files and
+    # checkpoint bytes, one launch a segment
+    out_pl = os.path.join(OUT, "bm25-grid-pipelined")
+    _, pipe = _timed(_via_runner(spec, coll, out_pl, pipelined=True), n, out_pl)
+    _same_scan(out, out_pl, pipe, sync, "pipelined")
+    emit("experiment.pipelined", experiment=spec.name, run_files_identical=True,
+         checkpoints_identical=True, **pipe, synchronous_scan_s=sync["scan_s"],
+         synchronous_docs_per_s=sync["docs_per_s"], synchronous_busy_share=sync["busy_share"],
+         nvidia_smi=ctx["smi"])
 
     # the same run with packed corpus segments (token_pack "auto": 17-bit
-    # planes at vocab 65,536) on the same prepared collection: the run files
-    # and the checkpoint bytes are the unpacked run's, one launch a segment
+    # planes at vocab 65,536) on the synchronous executor, as measured
+    # before: the run files and the checkpoint bytes are the unpacked run's
     out_p = os.path.join(OUT, "bm25-grid-packed")
-    shutil.rmtree(out_p, ignore_errors=True)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t1 = time.monotonic()
-    packed = runner.run_experiment(
-        spec, out_dir=out_p, seed=0, collection=coll, device="cuda",
-        trace_out=os.path.join(out_p, "trace.json"), tuning=TuningConfig(token_pack="auto"),
-    )
-    packed_lifecycle_s = time.monotonic() - t1
-    packed_launches = ops.LAUNCHES["lexical_scan_topk"]
+    packed, pk = _timed(_via_runner(spec, coll, out_p, pipelined=False,
+                                    tuning=TuningConfig(token_pack="auto")), n, out_p)
     resolved = packed["job"]["tuning"]["pack_resolved"]
     if resolved != "bitpack":
         raise AssertionError(f"token_pack auto resolved to {resolved!r} at vocab {spec.vocab}")
-    if packed_launches != packed["job"]["segments_total"]:
-        raise AssertionError(f"{packed_launches} packed kernel launches for "
-                             f"{packed['job']['segments_total']} segments")
-    for model in report["models"]:
-        with open(report["runs"][model], "rb") as f_a, open(packed["runs"][model], "rb") as f_b:
-            if f_a.read() != f_b.read():
-                raise AssertionError(f"{model}: the packed run file differs from the unpacked one")
-    written = [r["job"]["obs"]["metrics"]["counters"]["ckpt.written_bytes"]
-               for r in (report, packed)]
-    if written[0] != written[1]:
-        raise AssertionError(f"checkpoint bytes written: unpacked {written[0]}, packed {written[1]}")
-    packed_phases = packed["job"]["obs"]["phases"]
-    packed_scan_s = packed_phases["(global)"]["experiment.scan"]["total_s"]
-    ctx["launches"]["lexical_scan_topk[packed]"] = packed_launches
+    _assert_same_runs(out, out_p, "packed")
+    if pk["ckpt_written_bytes"] != sync["ckpt_written_bytes"]:
+        raise AssertionError(f"checkpoint bytes written: unpacked {sync['ckpt_written_bytes']}, "
+                             f"packed {pk['ckpt_written_bytes']}")
+    ctx["launches"]["lexical_scan_topk[packed]"] = pk["launches"]
     emit("experiment.packed", experiment=spec.name, token_pack="auto", pack_resolved=resolved,
-         bits=int(spec.vocab).bit_length(), segments=packed["job"]["segments_total"],
-         launches=packed_launches, run_files_identical=True, ckpt_written_bytes=written[1],
-         lifecycle_s=packed_lifecycle_s, scan_s=packed_scan_s,
-         docs_per_s=spec.n_docs / packed_scan_s, unpacked_scan_s=scan_s,
-         unpacked_docs_per_s=spec.n_docs / scan_s,
-         max_memory_allocated=torch.cuda.max_memory_allocated(), phases=packed_phases,
+         bits=int(spec.vocab).bit_length(), run_files_identical=True, **pk,
+         unpacked_scan_s=sync["scan_s"], unpacked_docs_per_s=sync["docs_per_s"],
          nvidia_smi=ctx["smi"])
+
+    # the corpus kept on the host, pinned once before the scan, streamed to
+    # the card prefetch_depth segments ahead of the fold; then the same job
+    # over the corpus on the card, whose memory above the collection is the
+    # scan's own (segments are slices): the streamed run may take that, its
+    # depth + 1 staged segments (the fold may hold its last while the
+    # producer stages the next depth) and less than one segment more
+    t_pin = time.monotonic()
+    host = (torch.from_numpy(coll.corpus.tokens).pin_memory(),
+            torch.from_numpy(coll.corpus.lengths).pin_memory())
+    pin_s = time.monotonic() - t_pin
+    queries = torch.as_tensor(coll.queries, device="cuda")
+    device_corpus = (torch.as_tensor(coll.corpus.tokens, device="cuda"),
+                     torch.as_tensor(coll.corpus.lengths, device="cuda"))
+    depth = TuningConfig().prefetch_depth
+    # the host-to-card rate of one segment's tokens copied from the pinned
+    # corpus alone, beside which the streamed run's prefetch wait is read
+    rows = spec.chunk_size * spec.segment_chunks
+    landing = torch.empty_like(device_corpus[0][:rows])
+    h2d_ms = cuda_ms(lambda: landing.copy_(host[0][:rows], non_blocking=True), reps=8)
+    h2d = {"segment_tokens_bytes": landing.numel() * 4, "ms": h2d_ms,
+           "bytes_per_s": landing.numel() * 4 / (h2d_ms * 1e-3)}
+    del landing
+    out_s = os.path.join(OUT, "bm25-grid-streamed")
+    job_s, streamed = _timed(_via_job(spec, host, queries, coll.stats, out_s), n, out_s)
+    out_d = os.path.join(OUT, "bm25-grid-job")
+    job_d, resident = _timed(_via_job(spec, device_corpus, queries, coll.stats, out_d), n, out_d)
+    segment_bytes = rows * (spec.max_doc_len + 1) * 4
+    limit = resident["peak_above_base"] + (depth + 1) * segment_bytes + segment_bytes // 2
+    if streamed["peak_above_base"] > limit:
+        raise AssertionError(f"streamed scan took {streamed['peak_above_base']} B of device "
+                             f"memory above the collection, limit {limit}")
+    last = os.path.join(out, "ckpt", f"step_{job_s.segments_total:08d}")
+    want = [np.load(os.path.join(last, f"leaf_{i:05d}.npy")) for i in range(2)]
+    for name, job in (("streamed", job_s), ("device-resident job", job_d)):
+        got = [job.state.scores.cpu().numpy(), job.state.ids.cpu().numpy()]
+        if any(a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+            raise AssertionError(f"the {name} state differs from the runner's")
+    ckpts = _ckpt_files(os.path.join(out, "ckpt"))
+    if _ckpt_files(out_s) != ckpts or _ckpt_files(out_d) != ckpts:
+        raise AssertionError("the scan job's checkpoints differ from the runner's")
+    emit("experiment.streamed", experiment=spec.name, corpus="host, pinned", pin_s=pin_s,
+         pinned=host[0].is_pinned(), h2d_copy=h2d, prefetch_depth=depth, **streamed, memory_limit=limit,
+         memory_limit_parts={"device_resident_peak_above_base": resident["peak_above_base"],
+                             "staged_segments": (depth + 1) * segment_bytes,
+                             "margin": segment_bytes // 2},
+         state_identical=True, checkpoints_identical=True, nvidia_smi=ctx["smi"])
+    emit("experiment.job", experiment=spec.name, corpus="card", run_after="experiment.streamed",
+         **resident, state_identical=True, checkpoints_identical=True, nvidia_smi=ctx["smi"])
+
+    # the pipelined runner once more, now that this process has run the
+    # executor three times: is its first run slower only for being first?
+    out_pl2 = os.path.join(OUT, "bm25-grid-pipelined-again")
+    _, again = _timed(_via_runner(spec, coll, out_pl2, pipelined=True), n, out_pl2)
+    _same_scan(out, out_pl2, again, sync, "pipelined again")
+    # and where the device time of a pipelined scan goes (one profiled job,
+    # after the timed runs: profiling slows the host)
+    out_prof = os.path.join(OUT, "bm25-grid-profiled")
+    shutil.rmtree(out_prof, ignore_errors=True)
+    profile = _scan_profile(_via_job(spec, device_corpus, queries, coll.stats, out_prof),
+                            spec.n_docs // (spec.chunk_size * spec.segment_chunks))
+    emit("experiment.pipelined_again", experiment=spec.name, run_files_identical=True,
+         checkpoints_identical=True, **{k: v for k, v in again.items() if k != "phases"},
+         first_scan_s=pipe["scan_s"], profile=profile, nvidia_smi=ctx["smi"])
+    del host, queries, device_corpus, job_s, job_d
+
+
+def _same_scan(a: str, b: str, got: dict, want: dict, what: str) -> None:
+    """Run files, checkpoint files and checkpoint bytes written of run ``b``
+    equal those of run ``a``."""
+    _assert_same_runs(a, b, what)
+    if got["ckpt_written_bytes"] != want["ckpt_written_bytes"]:
+        raise AssertionError(f"{what}: checkpoint bytes written {got['ckpt_written_bytes']}, "
+                             f"{want['ckpt_written_bytes']} expected")
+    if _ckpt_files(os.path.join(b, "ckpt")) != _ckpt_files(os.path.join(a, "ckpt")):
+        raise AssertionError(f"{what}: the checkpoints differ from {a}'s")
+
+
+def _assert_same_runs(a: str, b: str, what: str) -> None:
+    names = sorted(os.listdir(os.path.join(a, "runs")))
+    if names != sorted(os.listdir(os.path.join(b, "runs"))):
+        raise AssertionError(f"{what}: run file names differ")
+    for name in names:
+        with open(os.path.join(a, "runs", name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(b, "runs", name), "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"{what}: run file {name} differs from {a}'s")
 
 
 def phase_resume(ctx) -> None:
-    from repro_torch.cluster import WorkerCrash
+    from repro_torch.cluster import FaultSchedule, FaultSpec, WorkerCrash
     from repro_torch.experiments import grid as exp_grid
     from repro_torch.experiments import runner
     from repro_torch.kernels import ops
 
     spec = exp_grid.get_experiment("smoke")
-    clean = os.path.join(OUT, "smoke-clean")
-    crashed = os.path.join(OUT, "smoke-crashed")
-    for p in (clean, crashed):
-        shutil.rmtree(p, ignore_errors=True)
-    ops.reset_launches()
-    runner.run_experiment(spec, out_dir=clean, device="cuda")
+    # on each executor: crash after the first segment's commit, then resume
+    # from it; the run files are those of an uninterrupted run
+    for pipelined in (False, True):
+        tag = "-pipelined" if pipelined else ""
+        clean = os.path.join(OUT, f"smoke-clean{tag}")
+        crashed = os.path.join(OUT, f"smoke-crashed{tag}")
+        for p in (clean, crashed):
+            shutil.rmtree(p, ignore_errors=True)
+        ops.reset_launches()
+        runner.run_experiment(spec, out_dir=clean, device="cuda", pipelined=pipelined)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                runner.run_experiment(spec, out_dir=crashed, device="cuda", fail_at_segment=0,
+                                      pipelined=pipelined)
+        except WorkerCrash:
+            pass
+        else:
+            raise AssertionError("the injected crash did not fire")
+        report = runner.run_experiment(spec, out_dir=crashed, device="cuda", pipelined=pipelined)
+        if report["job"]["resumed_from"] != 1 or report["job"]["segments_run"] != 1:
+            raise AssertionError(f"resume did not start at segment 1: {report['job']}")
+        if report["job"]["pipelined"] != pipelined:
+            raise AssertionError(f"asked for pipelined={pipelined}, ran {report['job']['pipelined']}")
+        _assert_same_runs(clean, crashed, f"crash and resume{tag}")
+        emit("resume", experiment="smoke", pipelined=pipelined, crashed_after_segment=0,
+             resumed_from=1, run_files_identical=True,
+             launches=ops.LAUNCHES["lexical_scan_topk"], nvidia_smi=ctx["smi"])
+
+    # the reliability layer on two workers, each on a CUDA stream of its own:
+    # 4 shards of 2 segments (1,024 docs, one 128-doc chunk a segment)
+    spec4 = dataclasses.replace(spec, n_docs=1024, n_shards=4, segment_chunks=1)
+    coll = runner.prepare_collection(spec4, seed=0, device="cuda")
+    clean4 = os.path.join(OUT, "smoke4-clean")
+    shutil.rmtree(clean4, ignore_errors=True)
+    runner.run_experiment(spec4, out_dir=clean4, collection=coll, device="cuda")
+    runs = {}
+    cases = [(f"chaos-seed{seed}", FaultSchedule.random(seed, n_shards=4, n_segments=2),
+              {"max_retries": 2, "speculative": True}) for seed in (0, 1)]
+    cases.append(("writer-error", FaultSchedule([FaultSpec("writer_error", shard=1, segment=1)]),
+                  {"max_retries": 1}))
+    for name, sched, kw in cases:
+        out = os.path.join(OUT, f"smoke4-{name}")
+        shutil.rmtree(out, ignore_errors=True)
+        ops.reset_launches()
+        rep = runner.run_experiment(spec4, out_dir=out, collection=coll, device="cuda",
+                                    faults=sched, max_workers=2, **kw)
+        _assert_same_runs(clean4, out, name)
+        sched_stats = rep["job"]["scheduler"]
+        if sched_stats["n_workers"] != 2:
+            raise AssertionError(f"{name}: {sched_stats['n_workers']} workers, 2 expected")
+        hard = [f for f in sched.fired if f["kind"] in ("crash", "writer_error")]
+        if not hard or sched_stats["retries"] + sched_stats["speculative_launched"] < 1:
+            raise AssertionError(f"{name}: no fault fired or none was retried: {sched.fired}")
+        if ops.LAUNCHES["lexical_scan_topk"] < rep["job"]["segments_run"]:
+            raise AssertionError(f"{name}: {ops.LAUNCHES['lexical_scan_topk']} launches for "
+                                 f"{rep['job']['segments_run']} segments")
+        runs[name] = {"fired": sched.fired, "scheduler": sched_stats,
+                      "segments_run": rep["job"]["segments_run"],
+                      "launches": ops.LAUNCHES["lexical_scan_topk"], "run_files_identical": True}
+    # a crash on every attempt: the job fails with the shard's original error
+    out = os.path.join(OUT, "smoke4-permanent")
+    shutil.rmtree(out, ignore_errors=True)
+    sched = FaultSchedule([FaultSpec("crash", shard=2, segment=1, phase="pre_commit",
+                                     attempts="all")])
     try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            runner.run_experiment(spec, out_dir=crashed, device="cuda", fail_at_segment=0)
-    except WorkerCrash:
-        pass
+        runner.run_experiment(spec4, out_dir=out, collection=coll, device="cuda", faults=sched,
+                              max_workers=2, max_retries=1)
+    except WorkerCrash as e:
+        if "injected failure before segment 1" not in str(e):
+            raise
+        permanent = {"error": f"{type(e).__name__}: {e}", "fired": sched.fired}
     else:
-        raise AssertionError("the injected crash did not fire")
-    report = runner.run_experiment(spec, out_dir=crashed, device="cuda")
-    if report["job"]["resumed_from"] != 1 or report["job"]["segments_run"] != 1:
-        raise AssertionError(f"resume did not start at segment 1: {report['job']}")
-    for name in sorted(os.listdir(os.path.join(clean, "runs"))):
-        with open(os.path.join(clean, "runs", name), "rb") as f:
-            a = f.read()
-        with open(os.path.join(crashed, "runs", name), "rb") as f:
-            b = f.read()
-        if a != b:
-            raise AssertionError(f"run file {name} differs after crash and resume")
-    emit("resume", experiment="smoke", crashed_after_segment=0, resumed_from=1,
-         run_files_identical=True, launches=ops.LAUNCHES["lexical_scan_topk"],
+        raise AssertionError("a crash on every attempt did not fail the job")
+    if sched.count_fired("crash") != 2:
+        raise AssertionError(f"permanent crash fired {sched.count_fired('crash')} times, 2 expected")
+    emit("resume.reliability", experiment="smoke", n_docs=spec4.n_docs, n_shards=4,
+         segments_per_shard=2, max_workers=2, streams=2, runs=runs, permanent=permanent,
          nvidia_smi=ctx["smi"])
 
 
@@ -1451,30 +1773,16 @@ def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
     """Where the device time goes: `torch.profiler` over one prefill and
     over 8 decode steps (after the timed runs; the decode steps write
     positions past the timed ones, from ``t``, a device int32 advanced in
-    place). Per window: wall seconds (profiling
-    adds host time), the device's busy seconds (the sum of its activities'
-    device time: one stream, so they do not overlap), the idle share and
-    the top activities by device time."""
+    place). Per window: wall seconds (profiling adds host time), the
+    device's busy seconds (one stream, so its activities do not overlap),
+    the idle share and the top activities by device time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as tfm
 
     def window(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-        # device activity only (kernels, copies); the host ops that launched
-        # them and CUPTI's "Command Buffer Full" waits carry the same time
-        rows = [(e.key, e.self_device_time_total * 1e-6, e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key != "Command Buffer Full"]
-        busy = sum(r[1] for r in rows)
-        rows.sort(key=lambda r: -r[1])
+        prof = _device_profile(fn)
+        rows, busy, wall = prof["rows"], prof["device_busy_s"], prof["wall_s"]
         return {"wall_s": wall, "device_busy_s": busy,
                 "idle_share": 1.0 - busy / wall if busy else "not measured",
                 "flash_s": {name: sum(d for k, d, _ in rows if tag in k) for name, tag in

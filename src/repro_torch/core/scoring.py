@@ -148,8 +148,10 @@ def apply_epilogue(
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    """A Python float as a float32 scalar tensor on ``like``'s device."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """A Python float as a float32 scalar tensor on ``like``'s device,
+    filled there: a host-to-device copy of a pageable scalar would make
+    the host wait for the device, once a scorer, every segment."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _lookup(table: torch.Tensor, q_tokens: torch.Tensor) -> torch.Tensor:

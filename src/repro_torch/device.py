@@ -18,3 +18,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "to run the port's plain PyTorch path on the CPU"
         )
     return dev
+
+
+def canonical_device(device: str | torch.device | None = None) -> torch.device:
+    """:func:`resolve_device`, with a CUDA device's index filled in (the
+    current device's), so that two names of one card compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

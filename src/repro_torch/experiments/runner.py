@@ -6,9 +6,9 @@ One call runs the whole MIREX experiment lifecycle for a declared grid:
      JAX package's for the same seed) + collection-statistics job + queries
      + graded qrels;
   2. **scan** — one resumable multi-scorer corpus pass
-     (`cluster.run_sharded_scan_job`): every grid point shares the corpus
-     stream, and on a CUDA device every segment goes through the CUDA
-     lexical-scan kernel;
+     (`cluster.run_sharded_scan_job`, pipelined by default): every grid
+     point shares the corpus stream, and on a CUDA device every segment
+     goes through the CUDA lexical-scan kernel;
   3. **report** — per-model TREC run files, the `repro_torch.eval` report
      card (MAP / P@k / NDCG / MRR / recall), and paired-randomization
      significance of every variant against the declared baseline.
@@ -91,10 +91,6 @@ def write_run_files(
     return paths
 
 
-def _not_in_this_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for the {slice_name} slice of the port")
-
-
 def run_experiment(
     spec: ExperimentSpec,
     *,
@@ -104,7 +100,7 @@ def run_experiment(
     fail_at_segment: int | None = None,
     fail_at_shard: int = 0,
     collection: Collection | None = None,
-    pipelined: bool = False,
+    pipelined: bool = True,
     max_workers: int | None = None,
     faults: Any | None = None,
     max_retries: int = 0,
@@ -123,26 +119,27 @@ def run_experiment(
     identical at every shard count and across a crash and resume.
 
     ``device`` (default ``cuda``) is where the corpus lives and the scan
-    runs. ``fail_at_segment``/``fail_at_shard`` (deprecated) and ``faults``
-    inject crashes. ``trace_out`` installs a fresh tracer + metrics for the
-    run and writes the Chrome trace there. A ``tuning`` whose ``token_pack``
-    is not ``"none"`` packs the corpus on the host before the scan
-    (`packing.pack_corpus`) when every scorer is lexical; the run files are
-    the unpacked run's, byte for byte. Not in this slice, and raising
-    ``NotImplementedError``: ``pipelined=True``, ``max_workers``,
-    ``max_retries``, ``speculative`` and ``tune_lookup``/``tune_cache``.
+    runs; with ``spec.n_shards > 1`` the shards run on that one device.
+    ``pipelined`` (default) is the overlapped executor (streamed segments,
+    asynchronous checkpoints, concurrent shards; byte-identical artifacts
+    either way) and ``max_workers`` caps its shard workers (default one per
+    device; two on one card run on two CUDA streams). ``faults`` (a
+    `repro_torch.cluster.FaultSchedule`), ``max_retries`` and
+    ``speculative`` drive the reliability layer; the report's ``job``
+    section records what the scheduler did. ``fail_at_segment``/
+    ``fail_at_shard`` are the deprecated single-crash alias. ``trace_out``
+    installs a fresh tracer + metrics for the run and writes the Chrome
+    trace there. A ``tuning`` whose ``token_pack`` is not ``"none"`` packs
+    the corpus on the host before the scan (`packing.pack_corpus`) when
+    every scorer is lexical; the run files are the unpacked run's, byte for
+    byte. ``tune_lookup``/``tune_cache`` (the autotune winner cache) wait
+    for the autotune slice and raise ``NotImplementedError``.
     """
     dev = resolve_device(device)
-    if pipelined:
-        raise _not_in_this_slice("pipelined=True", "executor")
-    if max_workers is not None:
-        raise _not_in_this_slice("max_workers", "executor")
-    if max_retries:
-        raise _not_in_this_slice("max_retries", "executor")
-    if speculative:
-        raise _not_in_this_slice("speculative execution", "executor")
     if tune_lookup or tune_cache is not None:
-        raise _not_in_this_slice("the autotune winner cache (--tune)", "autotune")
+        raise NotImplementedError(
+            "the autotune winner cache (--tune) waits for the autotune slice of the port"
+        )
     if fail_at_segment is not None:
         warnings.warn(
             "fail_at_segment/fail_at_shard are deprecated; use "
@@ -168,7 +165,11 @@ def run_experiment(
                 seed=seed,
                 resume=resume,
                 collection=collection,
+                pipelined=pipelined,
+                max_workers=max_workers,
                 faults=faults,
+                max_retries=max_retries,
+                speculative=speculative,
                 trace_out=trace_out,
                 tuning=tuning,
                 tuning_source=tuning_source,
@@ -186,7 +187,11 @@ def _run_experiment_traced(
     seed: int,
     resume: bool,
     collection: Collection | None,
+    pipelined: bool,
+    max_workers: int | None,
     faults: Any | None,
+    max_retries: int,
+    speculative: bool,
     trace_out: str | None,
     tuning: TuningConfig | None,
     tuning_source: str,
@@ -233,8 +238,11 @@ def _run_experiment_traced(
         if spec.n_docs % max(1, spec.n_shards) == 0 and per_shard % cfg.chunk_size == 0:
             chunk = cfg.chunk_size
 
+    # shards run on the run's one device (one card: one worker unless
+    # max_workers asks for more)
     plan = plan_shards(spec.n_docs, n_shards=spec.n_shards, chunk_size=chunk)
-    with tr.span("experiment.scan", "experiment", n_shards=plan.n_shards, pipelined=False):
+    devices = [device] if spec.n_shards > 1 else None
+    with tr.span("experiment.scan", "experiment", n_shards=plan.n_shards, pipelined=pipelined):
         job = run_sharded_scan_job(
             torch.as_tensor(coll.queries, device=device),
             docs,
@@ -246,7 +254,12 @@ def _run_experiment_traced(
             stats=stats,
             ckpt_dir=os.path.join(out_dir, "ckpt"),
             resume=resume,
+            devices=devices,
+            pipelined=pipelined,
+            max_workers=max_workers,
             faults=faults,
+            max_retries=max_retries,
+            speculative=speculative,
             tuning=cfg,
         )
         if device.type == "cuda":
@@ -308,12 +321,12 @@ def _run_experiment_traced(
         "models": [s.name for s in scorers],
         "job": {
             "n_shards": job.plan.n_shards,
-            "pipelined": False,
+            "pipelined": pipelined,
             "segments_total": job.segments_total,
             "segments_run": job.segments_run,
             "resumed_from": max(r.resumed_from for r in job.shard_results),
-            "max_retries": 0,
-            "speculative": False,
+            "max_retries": max_retries,
+            "speculative": speculative,
             "scheduler": job.scheduler.describe() if job.scheduler else None,
             "faults_fired": faults.fired if faults is not None else [],
             "tuning": {

@@ -273,7 +273,10 @@ def lexical_scan_topk_cuda(
     sentinel = 0 if pack_spec is None else pack_spec.vocab
     lib = _lib()
     q_safe = safe_queries(q_tokens).contiguous()
-    codes = torch.tensor(mode_codes(modes), dtype=torch.int32, device=dev)
+    # from pinned memory without waiting: a blocking copy would make the
+    # host wait here for the device's queue, every call
+    codes = torch.tensor(mode_codes(modes), dtype=torch.int32).pin_memory().to(
+        dev, non_blocking=True)
     out_s = torch.empty((n_models, n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_models, n_q, k), dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)

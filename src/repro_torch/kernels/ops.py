@@ -7,7 +7,8 @@ reaches a plain version, and a failed build or launch is an error.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card (plain integers; runs on the CPU never count), so that a run can show
-its main path went through the kernels.
+its main path went through the kernels. A count is raised under a lock:
+the scan job's workers launch from several threads at once.
 
 Block geometry defaults to the active `repro_torch.tune.TuningConfig`, as
 in the reference (`repro.kernels.ops`); it only regroups value-deterministic
@@ -15,6 +16,8 @@ merges, so it changes speed, never a bit of the result.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -29,10 +32,20 @@ LAUNCHES: dict[str, int] = {
 }
 
 
+_LAUNCHES_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]`` (a read-modify-write, hence the lock)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
@@ -79,7 +92,7 @@ def score_topk(q, d, *, k: int, block_d: int | None = None, merge: str = "bitoni
     if q.device.type != "cuda":
         raise ValueError(f"score_topk: no kernel for device {q.device}")
     out = _dense.score_topk_cuda(q, d, k=k, block_d=block_d)
-    LAUNCHES["score_topk"] += 1
+    count_launch("score_topk")
     return out
 
 
@@ -130,7 +143,7 @@ def lexical_scan_topk(
         q_tokens, weights, ab, d_tokens, d_len,
         modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec,
     )
-    LAUNCHES["lexical_scan_topk"] += 1
+    count_launch("lexical_scan_topk")
     return out
 
 
@@ -174,7 +187,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     out = _flash.flash_attention_cuda(q, k, v, causal=causal, window=window, cap=cap,
                                       block_q=block_q, block_k=block_k)
-    LAUNCHES["flash_attention"] += 1
+    count_launch("flash_attention")
     return out
 
 
@@ -213,7 +226,7 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
             t_dev = t.reshape(()).to(torch.int32)  # no copy for an int32 t
             out = _decode.flash_decode_cuda(q, k_cache, v_cache, t_dev, window=window,
                                             cap=cap, block_s=block_s)
-            LAUNCHES["flash_decode"] += 1
+            count_launch("flash_decode")
             return out
     t = int(t)
     if not 0 <= t < k_cache.shape[1]:
@@ -225,5 +238,5 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
     t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
     out = _decode.flash_decode_cuda(q, k_cache, v_cache, t_dev, window=window, cap=cap,
                                     block_s=block_s)
-    LAUNCHES["flash_decode"] += 1
+    count_launch("flash_decode")
     return out

@@ -13,16 +13,23 @@
 The lifecycle is prepare → scan job → run files → eval (see
 `repro_torch.experiments.runner`). The scan job checkpoints per corpus
 segment under ``<out>/ckpt`` — kill the process mid-run and re-invoke with
-the same ``--out`` to resume bit-identically. ``--fault-spec
-crash:shard=S,segment=N[,phase=pre_commit]`` injects a crash
-(``--fail-at-segment`` is the deprecated single-crash alias).
-``--token-pack auto|8|16|bitpack`` packs the corpus segments
-(`repro_torch.core.packing`); the run files are the unpacked run's.
+the same ``--out`` to resume bit-identically. ``--token-pack
+auto|8|16|bitpack`` packs the corpus segments (`repro_torch.core.packing`);
+the run files are the unpacked run's.
+
+Chaos testing goes through the reliability layer: ``--fault-spec`` (or
+``--fault``) injects deterministic faults (repeatable;
+``crash:shard=1,segment=0``, ``straggler:shard=2,delay=0.01``,
+``writer_error:shard=0,segment=1``, ``dead_worker:worker=0``),
+``--fault-seed`` derives a whole seeded schedule, and
+``--max-retries``/``--speculative`` turn on checkpoint-resumed retries and
+speculative re-execution. Run files are byte-identical to the fault-free
+run under any schedule. (``--fail-at-segment`` is the deprecated
+single-crash alias.)
 
 Same flags as `repro.launch.experiment` plus ``--device`` (default
-``cuda``). Not in this slice, and refused with a message: ``--pipeline``
-(the default here is ``--no-pipeline``), ``--max-workers``,
-``--max-retries``, ``--speculative``, ``--fault-seed``, ``--tune``,
+``cuda``); ``--pipeline`` (the overlapped executor) is the default, as
+there. Not in this slice, and refused with a message: ``--tune``,
 ``--tune-cache`` and ``--bench``.
 """
 
@@ -32,7 +39,7 @@ import argparse
 import dataclasses
 
 from repro_torch import tune
-from repro_torch.cluster import build_schedule
+from repro_torch.cluster import FaultSchedule, build_schedule
 from repro_torch.experiments import grid as exp_grid
 from repro_torch.experiments import runner
 
@@ -126,11 +133,6 @@ def print_report(report: dict) -> None:
 def _refuse(args) -> None:
     """Flags whose machinery waits for a later slice of the port."""
     pending = [
-        ("--pipeline", args.pipeline, "executor"),
-        ("--max-workers", args.max_workers is not None, "executor"),
-        ("--max-retries", args.max_retries, "executor"),
-        ("--speculative", args.speculative, "executor"),
-        ("--fault-seed", args.fault_seed is not None, "executor"),
         ("--tune", args.tune, "autotune"),
         ("--tune-cache", args.tune_cache is not None, "autotune"),
         ("--bench", args.bench, "benchmark"),
@@ -159,17 +161,20 @@ def main(argv=None):
     ap.add_argument("--segment-chunks", type=int, default=None,
                     help="corpus chunks per checkpoint segment")
     ap.add_argument("--n-shards", type=int, default=None,
-                    help="corpus scan shards, run in plan order on one device "
-                         "(run files are byte-identical at every shard count)")
+                    help="corpus scan shards, on the run's device (run files "
+                         "are byte-identical at every shard count)")
     ap.add_argument("--fail-at-shard", type=int, default=0,
                     help="shard the injected failure fires on (testing)")
     ap.add_argument("--pipeline", action=argparse.BooleanOptionalAction,
-                    default=False,
-                    help="overlapped scan executor (waits for the executor "
-                         "slice; --no-pipeline, the default, is the "
-                         "synchronous executor)")
+                    default=True,
+                    help="overlapped scan executor: concurrent shards, "
+                         "double-buffered segment prefetch, async checkpoints "
+                         "(--no-pipeline = synchronous reference executor; "
+                         "artifacts are byte-identical either way)")
     ap.add_argument("--max-workers", type=int, default=None,
-                    help="cap the concurrent-shard pool (executor slice)")
+                    help="cap the concurrent-shard thread pool (default: one "
+                         "worker per device; two on one card run on two "
+                         "CUDA streams)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="accepted for the reference's command lines; changes "
                          "nothing (on cuda the scan always runs the CUDA "
@@ -179,15 +184,21 @@ def main(argv=None):
     ap.add_argument("--fail-at-segment", type=int, default=None,
                     help="deprecated alias: one crash after this segment "
                          "commits on --fail-at-shard (use --fault-spec)")
-    ap.add_argument("--fault-spec", action="append", default=[],
-                    help='inject a crash "crash:shard=S,segment=N[,phase=pre_commit]" '
-                         "(repeatable; other fault kinds wait for the executor slice)")
+    ap.add_argument("--fault-spec", "--fault", action="append", default=[],
+                    help='inject a fault "kind:key=val,..." (repeatable), e.g. '
+                         '"crash:shard=1,segment=0,phase=pre_commit", '
+                         '"straggler:shard=2,delay=0.01", '
+                         '"writer_error:shard=0,segment=1", '
+                         '"dead_worker:worker=0"')
     ap.add_argument("--fault-seed", type=int, default=None,
-                    help="seeded chaos schedule (executor slice)")
+                    help="derive a whole seeded chaos schedule (crashes × "
+                         "stragglers × writer errors) from this seed")
     ap.add_argument("--max-retries", type=int, default=0,
-                    help="re-run a failed shard (executor slice)")
+                    help="re-run a failed shard from its last committed "
+                         "segment checkpoint up to this many times")
     ap.add_argument("--speculative", action="store_true",
-                    help="speculative re-execution (executor slice)")
+                    help="speculatively re-execute the slowest in-flight "
+                         "shard when the work queue drains")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace_event JSON here (the JSONL "
                          "event log lands next to it). Default: "
@@ -225,6 +236,18 @@ def main(argv=None):
         raise SystemExit("--trace-out and --no-trace are mutually exclusive")
 
     faults = build_schedule(args.fault_spec) if args.fault_spec else None
+    if args.fault_seed is not None:
+        # schedule geometry from the job's own: segments per shard
+        shard_rows = spec.n_docs // max(1, spec.n_shards)
+        n_segments = max(1, shard_rows // (spec.chunk_size * spec.segment_chunks))
+        seeded = FaultSchedule.random(
+            args.fault_seed, n_shards=spec.n_shards, n_segments=n_segments
+        )
+        if faults is None:
+            faults = seeded
+        else:
+            for s in seeded.specs:
+                faults.add(s)
     tuning = tune.load(args.tuning_config) if args.tuning_config else None
     if args.token_pack is not None:
         base = tuning if tuning is not None else tune.TuningConfig()
@@ -239,7 +262,11 @@ def main(argv=None):
         fail_at_segment=args.fail_at_segment,
         fail_at_shard=args.fail_at_shard,
         collection=coll,
+        pipelined=args.pipeline,
+        max_workers=args.max_workers,
         faults=faults,
+        max_retries=args.max_retries,
+        speculative=args.speculative,
         trace_out=trace_out,
         tuning=tuning,
         device=args.device,

@@ -11,7 +11,7 @@ Public surface:
 * :class:`~repro_torch.serve.session.LexicalSession` /
   :class:`~repro_torch.serve.session.DenseSession` — resident-corpus scan state.
 * :class:`~repro_torch.serve.session.ShardedLexicalSession` — waits for the
-  mesh/executor slice (raises ``NotImplementedError``).
+  mesh slice (raises ``NotImplementedError``).
 * :class:`~repro_torch.serve.microbatch.Microbatcher` — deadline/size triggers +
   bucket padding, capped ladder (importable standalone for tests).
 * :class:`~repro_torch.serve.admission.AdmissionController` — bounded queue,

@@ -20,7 +20,7 @@ finished device work, as ``jax.block_until_ready`` makes it do in the
 reference.
 
 :class:`ShardedLexicalSession` (a corpus resident across a mesh) waits for
-the mesh/executor slice.
+the mesh slice.
 """
 
 from __future__ import annotations
@@ -142,7 +142,7 @@ class LexicalSession:
 
 class ShardedLexicalSession:
     """A lexical session with the corpus resident *sharded* across a mesh:
-    waits for the mesh/executor slice of the port."""
+    waits for the mesh slice of the port."""
 
     kind = "lexical"
     pad_value = PAD_TOKEN
@@ -150,7 +150,7 @@ class ShardedLexicalSession:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "ShardedLexicalSession (a corpus sharded across a mesh) waits for the "
-            "mesh/executor slice of the port"
+            "mesh slice of the port"
         )
 
 

@@ -1,27 +1,26 @@
 """The frozen config the port's performance knobs live in.
 
-The port's copy of `repro.tune.config`, cut down to the knobs the ported
-slices read: the fold's ``chunk_size``, the checkpoints kept on disk, the
-lexical kernel's ``lex_block_d``/``lex_tile_d``, ``token_pack`` (packed
-corpus segments, `repro_torch.core.packing`: read by the runner and the
-lexical session), the dense kernel's ``dense_block_d`` and the serve
-microbatch triggers (``serve_max_batch``, ``serve_max_delay_s``,
-``serve_min_bucket``, ``serve_max_bucket``) and the flash kernels' tiles
-(``flash_block_q``, ``flash_block_k``, ``decode_block_s``).
-Defaults reproduce the hand-picked values, so ``TuningConfig()`` is the
-identity config, and the contract is the reference's:
+The port's copy of `repro.tune.config`, with the knobs the port reads: the
+fold's ``chunk_size``, the pipelined executor's ``prefetch_depth``,
+``max_workers``, ``cross_shard_prefetch`` and ``writer_reuse``, the
+checkpoints kept on disk, the scheduler's retry backoff
+(``backoff_base``/``backoff_cap``), the lexical kernel's
+``lex_block_d``/``lex_tile_d``, ``token_pack`` (packed corpus segments,
+`repro_torch.core.packing`: read by the runner and the lexical session),
+the dense kernel's ``dense_block_d``, the serve microbatch triggers
+(``serve_max_batch``, ``serve_max_delay_s``, ``serve_min_bucket``,
+``serve_max_bucket``) and the flash kernels' tiles (``flash_block_q``,
+``flash_block_k``, ``decode_block_s``). The knob table is the
+reference's, so a config's ``config_hash`` is the reference's for the same
+knobs. Defaults reproduce the hand-picked values, so ``TuningConfig()`` is
+the identity config, and the contract is the reference's:
 
     **tuning changes speed, never bytes.**
 
-The block/tile knobs only regroup the value-deterministic top-k merges and
-the tf reduction accumulates in int32, so run files under any legal config
-are byte-identical to the default-config run.
-
-The reference's other knobs (prefetch, workers, writer reuse, retry
-backoff) wait for the slices
-that read them. :meth:`TuningConfig.from_dict` (and so ``--tuning-config``)
-accepts such a knob only at the reference's default value, which changes
-nothing, and raises ``NotImplementedError`` for any other value.
+The block/tile knobs only regroup the value-deterministic top-k merges,
+the tf reduction accumulates in int32, and the executor's knobs reorder
+work that commutes, so run files under any legal config are byte-identical
+to the default-config run.
 
 Code paths accept an explicit ``tuning=`` argument and fall back to the
 process-wide active config (:func:`active` / the :func:`use` context
@@ -43,32 +42,29 @@ SPACE_VERSION = 3
 # legal token_pack values (the reference's packing.PACK_MODES)
 _TOKEN_PACK_MODES = ("none", "auto", "8", "16", "bitpack")
 
-# the reference's knobs that no code of this slice reads: (default, slice)
-_LATER_KNOBS = {
-    "prefetch_depth": (2, "executor"),
-    "max_workers": (None, "executor"),
-    "cross_shard_prefetch": (True, "executor"),
-    "writer_reuse": (False, "executor"),
-    "backoff_base": (0.1, "executor"),
-    "backoff_cap": (5.0, "executor"),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class TuningConfig:
-    """The knobs of this slice, one frozen record. Defaults == the
-    hand-picked values, so ``TuningConfig()`` is the identity config.
+    """The port's knobs, one frozen record. Defaults == the hand-picked
+    values, so ``TuningConfig()`` is the identity config.
 
     ``None`` on the geometry knobs means "follow the caller": ``chunk_size``
-    defers to the experiment/job's declared chunking and ``lex_block_d`` /
+    defers to the experiment/job's declared chunking, ``lex_block_d`` /
     ``dense_block_d`` follow ``chunk_size`` on the scan paths (the kernels'
-    own defaults, 512 / 1024, on direct calls). ``serve_max_bucket=None``
+    own defaults, 512 / 1024, on direct calls) and ``max_workers`` defers
+    to one worker per device. ``serve_max_bucket=None``
     means an uncapped bucket ladder (its default is a cap, 128; capping only
     regroups dispatches, so results stay byte-identical).
     """
 
     chunk_size: int | None = None  # rows per fold chunk; None = caller's
+    prefetch_depth: int = 2  # staged segments ahead of the fold
+    max_workers: int | None = None  # shard pool cap; None = per device
+    cross_shard_prefetch: bool = True  # stage next shard's first segment
+    writer_reuse: bool = False  # share the async ckpt writer per worker
     keep_checkpoints: int = 2  # committed segments kept on disk
+    backoff_base: float = 0.1  # scheduler retry pacing
+    backoff_cap: float = 5.0
     lex_block_d: int | None = None  # doc tile; None = chunk_size / 512
     lex_tile_d: int = 16  # L_d sub-tile of the tf reduction
     dense_block_d: int | None = None  # doc tile; None = chunk_size / 1024
@@ -86,19 +82,20 @@ class TuningConfig:
     decode_block_s: int = 512  # cache positions per split-KV decode CTA
 
     def __post_init__(self):
-        for name in ("chunk_size", "lex_block_d", "dense_block_d", "serve_max_bucket"):
+        for name in ("chunk_size", "lex_block_d", "dense_block_d", "max_workers",
+                     "serve_max_bucket"):
             v = getattr(self, name)
             if v is not None and (not isinstance(v, int) or v < 1):
                 raise ValueError(f"{name} must be a positive int or None, got {v!r}")
-        for name in ("keep_checkpoints", "lex_tile_d", "serve_max_batch", "serve_min_bucket",
-                     "flash_block_q", "flash_block_k", "decode_block_s"):
+        for name in ("prefetch_depth", "keep_checkpoints", "lex_tile_d", "serve_max_batch",
+                     "serve_min_bucket", "flash_block_q", "flash_block_k", "decode_block_s"):
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
-        if not isinstance(self.serve_max_delay_s, (int, float)) or self.serve_max_delay_s < 0:
-            raise ValueError(
-                f"serve_max_delay_s must be a non-negative number, got {self.serve_max_delay_s!r}"
-            )
+        for name in ("backoff_base", "backoff_cap", "serve_max_delay_s"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or v < 0:
+                raise ValueError(f"{name} must be a non-negative number, got {v!r}")
         if self.token_pack not in _TOKEN_PACK_MODES:
             raise ValueError(
                 f"token_pack must be one of {_TOKEN_PACK_MODES}, "
@@ -126,21 +123,12 @@ class TuningConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "TuningConfig":
         """Build from a (possibly partial) knob dict, such as one the
-        reference's ``tune.save`` wrote. Unknown knob names are rejected; a
-        reference knob this slice does not read is dropped at its default
-        value and refused at any other."""
+        reference's ``tune.save`` wrote. Unknown knob names are rejected."""
         fields = {f.name for f in dataclasses.fields(cls)}
-        unknown = set(d) - fields - set(_LATER_KNOBS)
+        unknown = set(d) - fields
         if unknown:
             raise ValueError(f"unknown tuning knobs {sorted(unknown)}")
-        for name in sorted(set(d) & set(_LATER_KNOBS)):
-            default, slice_name = _LATER_KNOBS[name]
-            if d[name] != default:
-                raise NotImplementedError(
-                    f"tuning knob {name}={d[name]!r} waits for the {slice_name} "
-                    "slice of the port"
-                )
-        return cls(**{k: v for k, v in d.items() if k in fields})
+        return cls(**d)
 
     def config_hash(self) -> str:
         """Short content hash of (knob space version, full knob table),

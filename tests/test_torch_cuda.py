@@ -14,7 +14,12 @@ attention route; decode with ``t`` on the host and on the card, and
 replayed from a CUDA graph) within 3e-4 / 3e-5 in float32 and 3e-2 in
 bfloat16 (the reference's tolerances), and the reduced LM on the card
 within 1e-4 / 1e-5 of the CPU; its serve step with ``t`` on the card makes
-no host sync. ``chip_smoke.py`` makes the same checks at the full width.
+no host sync. The pipelined executor on the card: host → card prefetch on a
+copy stream equals the slices within its memory bound, the snapshot
+checkpoints equal the synchronous job's, two workers on two streams give
+the synchronous job's bits under seeded chaos, launches count exactly under
+threads, and a segment fold makes no host sync. ``chip_smoke.py`` makes the
+same checks at the full width.
 """
 
 import numpy as np
@@ -502,3 +507,147 @@ def test_cuda_serve_step_with_device_t_makes_no_host_sync():
         assert torch.equal(tok_d, tok_h), t
     for name in ("k", "v"):
         assert torch.equal(caches[0][name], caches[1][name])
+
+
+def _scan_collection(dev, seed=900, n_d=8192, l_d=32, n_q=16, vocab=300):
+    """A lexical corpus on the host and on the card, its statistics and
+    queries on the card, and a three-model grid."""
+    q, toks, lens = _lexical_inputs(seed, n_d, l_d, n_q, 4, vocab, n_d // 16)
+    host = (torch.tensor(toks), torch.tensor(lens))
+    docs = tuple(x.to(dev) for x in host)
+    stats = anchors.collection_stats(*docs, vocab, chunk_size=1024)
+    grid = [scoring.make_variant(b, **p) for b, p in GRID[:3]]
+    return host, docs, stats, torch.tensor(q, device=dev), grid
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_host_to_card_on_a_copy_stream():
+    """A host corpus streams to the card segment by segment, on the
+    producer's copy stream: every segment equals its slice, pinned source or
+    not, and the card holds at most depth + 1 segments of it at a time."""
+    from repro_torch.core import pipeline
+
+    dev = _card()
+    host = (torch.arange(64 * 4096 * 16, dtype=torch.int32).reshape(64 * 4096, 16),
+            torch.arange(64 * 4096, dtype=torch.int32))
+    segs = pipeline.segments(64 * 4096, 4096, 4)  # 16 segments of 1 MiB + lengths
+    seg_bytes = 4 * 4096 * (16 + 1) * 4
+    for source in (host, tuple(x.pin_memory() for x in host)):
+        for depth in (1, 2, 3):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for (a, b), seg in zip(segs, pipeline.prefetch_segments(source, segs, device=dev,
+                                                                     depth=depth)):
+                assert seg[0].device.type == "cuda"
+                s0 = seg[0].sum(dtype=torch.int64)  # read on the consumer's stream
+                assert torch.equal(seg[0].cpu(), host[0][a:b]) and torch.equal(seg[1].cpu(),
+                                                                               host[1][a:b])
+                assert int(s0) == int(host[0][a:b].sum(dtype=torch.int64))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            assert peak <= (depth + 1) * seg_bytes + (1 << 20), (depth, peak)
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_checkpoint_while_the_next_fold_runs(tmp_path):
+    """The pipelined job snapshots each state on the fold's stream and
+    launches the next fold at once; its checkpoints are the synchronous
+    job's byte for byte. The snapshot alone keeps its value when the
+    state's block is reused at once on the same stream."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import cluster
+
+    dev = _card()
+    host, docs, stats, q, grid = _scan_collection(dev)
+    kw = dict(k=200, chunk_size=1024, segment_chunks=1, stats=stats)
+    runs = {}
+    for pipelined in (False, True):
+        out = tmp_path / str(pipelined)
+        runs[pipelined] = cluster.run_scan_job(q, docs, grid, ckpt_dir=str(out),
+                                               keep_checkpoints=8, pipelined=pipelined, **kw)
+    def files(root):
+        return {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file()}
+
+    assert files(tmp_path / "False") == files(tmp_path / "True")
+    assert torch.equal(runs[True].state.ids, runs[False].state.ids)
+
+    state = runs[True].state
+    want = (state.scores.cpu(), state.ids.cpu())
+    snap = ckpt.snapshot(state)
+    del state, runs
+    for _ in range(4):  # reuse the freed blocks on the same stream at once
+        torch.full(want[0].shape, -7.0, device=dev), torch.full(want[1].shape, -7, device=dev,
+                                                                dtype=torch.int32)
+    got = snap.wait()
+    assert torch.equal(got.scores, want[0]) and torch.equal(got.ids, want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_two_workers_on_two_streams_are_bit_equal(tmp_path):
+    """Two scheduler workers on one card (two CUDA streams), the corpus on
+    the card or streamed from the host, with a seeded chaos schedule: the
+    merged state is the synchronous one-shard run's, bit for bit."""
+    from repro_torch import cluster
+    from repro_torch.cluster import FaultSchedule
+
+    dev = _card()
+    host, docs, stats, q, grid = _scan_collection(dev, seed=901)
+    kw = dict(k=200, chunk_size=1024, segment_chunks=1, stats=stats)
+    want = cluster.run_sharded_scan_job(q, docs, grid, n_shards=1, pipelined=False, **kw)
+    for n, corpus in enumerate((docs, tuple(x.pin_memory() for x in host))):
+        for seed in (0, 1):
+            sched = FaultSchedule.random(seed, n_shards=4, n_segments=2)
+            got = cluster.run_sharded_scan_job(
+                q, corpus, grid, n_shards=4, devices=[dev], max_workers=2, max_retries=2,
+                speculative=True, faults=sched, backoff_base=0.01,
+                ckpt_dir=str(tmp_path / f"{n}-{seed}"), **kw,
+            )
+            assert got.scheduler.n_workers == 2
+            assert torch.equal(got.state.ids, want.state.ids), (n, seed)
+            assert torch.equal(got.state.scores.view(torch.int32),
+                               want.state.scores.view(torch.int32)), (n, seed)
+
+
+@pytest.mark.cuda
+def test_cuda_launches_count_exactly_under_threads():
+    """Two workers launch the lexical kernel from two threads: the count is
+    one a segment folded, none lost."""
+    from repro_torch import cluster
+
+    dev = _card()
+    _, docs, stats, q, grid = _scan_collection(dev, seed=902)
+    ops.reset_launches()
+    job = cluster.run_sharded_scan_job(q, docs, grid, k=100, chunk_size=512, segment_chunks=1,
+                                       stats=stats, n_shards=8, devices=[dev], max_workers=2)
+    torch.cuda.synchronize()
+    assert job.segments_run == 16
+    assert ops.LAUNCHES["lexical_scan_topk"] == job.segments_run
+
+
+@pytest.mark.cuda
+def test_cuda_segment_fold_and_snapshot_make_no_host_sync():
+    """The pipelined job's per-segment work on the card — the fold (the
+    grid's epilogue weights, the kernel, the merge) and the checkpoint
+    snapshot — never makes the host wait for the device, so the host runs
+    ahead of the card by whole segments."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.cluster import mapreduce
+    from repro_torch.core import topk
+
+    dev = _card()
+    _, docs, stats, q, grid = _scan_collection(dev, seed=903)
+    fold = mapreduce.segment_fold(grid, k=200, chunk_size=1024)
+    state = topk.init(200, (len(grid), q.shape[0]), device=dev)
+    state = fold(state, q, tuple(x[:1024] for x in docs), stats, 0)  # builds the kernel
+    torch.cuda.synchronize()
+    want = fold(state, q, tuple(x[1024:2048] for x in docs), stats, 1024)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fold(state, q, tuple(x[1024:2048] for x in docs), stats, 1024)
+        snap = ckpt.snapshot(got)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = snap.wait()
+    assert torch.equal(got.ids, want.ids) and torch.equal(host.ids, want.ids.cpu())
+    assert torch.equal(host.scores.view(torch.int32), want.scores.cpu().view(torch.int32))

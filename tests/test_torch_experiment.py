@@ -150,28 +150,43 @@ def test_cli_writes_the_same_artifacts(tmp_path, port_clean, capsys):
         assert json.load(f)["metrics"] == report["metrics"]
 
 
-@pytest.mark.parametrize(
-    "flag", [["--pipeline"], ["--max-retries", "1"], ["--speculative"], ["--tune"],
-             ["--bench"], ["--fault-seed", "3"]],
-)
+@pytest.mark.parametrize("flag", [["--tune"], ["--bench"]])
 def test_cli_refuses_what_waits_for_later_slices(tmp_path, flag):
     with pytest.raises(SystemExit, match="slice of the port"):
         cli.main(["--experiment", "smoke", "--out", str(tmp_path), "--device", "cpu", *flag])
 
 
+@pytest.mark.parametrize(
+    "flag", [["--pipeline"], ["--max-retries", "1"], ["--speculative"],
+             ["--fault-seed", "3", "--max-retries", "1"]],
+)
+def test_cli_runs_the_executor_flags(tmp_path, port_clean, flag):
+    """The executor's flags run, and the run files are the clean run's."""
+    out, report = port_clean
+    cli.main(["--experiment", "smoke", "--out", str(tmp_path), "--device", "cpu", "--no-trace",
+              *flag])
+    assert _runs(tmp_path / "smoke") == _runs(out)
+    with open(tmp_path / "smoke" / "report.json") as f:
+        job = json.load(f)["job"]
+    assert job["pipelined"] is True
+    assert job["max_retries"] == (1 if "--max-retries" in flag else 0)
+    assert job["speculative"] is ("--speculative" in flag)
+    assert bool(job["faults_fired"]) is ("--fault-seed" in flag)
+
+
 def test_runner_refuses_what_waits_for_later_slices(tmp_path):
     from repro_torch.tune import TuningConfig
 
-    for kw in ({"pipelined": True}, {"max_retries": 1}, {"speculative": True},
-               {"tune_lookup": True}, {"max_workers": 2}):
+    for kw in ({"tune_lookup": True}, {"tune_cache": str(tmp_path / "cache.json")}):
         with pytest.raises(NotImplementedError, match="slice of the port"):
             runner.run_experiment(SMOKE, out_dir=str(tmp_path), device="cpu", **kw)
     # token_pack runs now (the packing slice): its artifacts are checked below
     packed = _run_port(tmp_path / "packed", tuning=TuningConfig(token_pack="bitpack"))
     assert packed["job"]["tuning"]["pack_resolved"] == "bitpack"
-    for kind in ("writer_error", "straggler", "dead_worker"):
-        with pytest.raises(NotImplementedError, match="executor slice"):
-            FaultSpec(kind, segment=0, shard=0)
+    # every fault kind constructs now (the executor slice)
+    assert FaultSpec("writer_error", segment=0, shard=0).attempts == (0,)
+    assert FaultSpec("straggler", shard=0, delay_s=0.01).attempts is None
+    assert FaultSpec("dead_worker", worker=1).worker == 1
     with pytest.raises(ValueError, match="unknown fault kind"):
         FaultSpec("meteor", segment=0)
     with pytest.raises(ValueError, match="belongs to a different job"):
@@ -182,18 +197,20 @@ def test_runner_refuses_what_waits_for_later_slices(tmp_path):
 def test_fault_schedule_records_what_fired():
     sched = FaultSchedule.from_legacy(3, 1)
     assert sched.describe() == [{"kind": "crash", "shard": 1, "segment": 3,
-                                 "phase": "post_commit"}]
-    assert sched.crash_at(1, 3, "pre_commit") is None
-    assert sched.crash_at(0, 3, "post_commit") is None
-    assert sched.crash_at(1, 3, "post_commit") is not None
-    assert sched.fired == [{"kind": "crash", "shard": 1, "segment": 3, "phase": "post_commit"}]
+                                 "phase": "post_commit", "attempts": [0], "delay_s": 0.0,
+                                 "worker": None, "after_shards": 0}]
+    assert sched.crash_at(1, 3, 0, "pre_commit") is None
+    assert sched.crash_at(0, 3, 0, "post_commit") is None
+    assert sched.crash_at(1, 3, 1, "post_commit") is None  # transient: attempt 0 only
+    assert sched.crash_at(1, 3, 0, "post_commit") is not None
+    assert sched.fired == [{"kind": "crash", "shard": 1, "segment": 3, "attempt": 0,
+                            "phase": "post_commit"}]
     assert sched.count_fired("crash") == 1
     assert np.array_equal(
         [s.segment for s in build_schedule(["crash:segment=1", "crash:segment=4"]).specs], [1, 4]
     )
-    # one attempt per shard here: a per-attempt crash would never fire, so it is refused
-    with pytest.raises(NotImplementedError, match="executor slice"):
-        build_schedule(["crash:segment=1,attempts=1"])
+    # per-attempt crashes parse now (the executor slice has retries to need them)
+    assert build_schedule(["crash:segment=1,attempts=1"]).specs[0].attempts == (1,)
 
 
 def test_tuning_knobs_of_later_slices_are_refused(tmp_path):
@@ -201,11 +218,16 @@ def test_tuning_knobs_of_later_slices_are_refused(tmp_path):
     from repro_torch import tune
 
     path = ref_tune.save(ref_tune.TuningConfig(lex_tile_d=32), str(tmp_path / "ref.json"))
-    assert tune.load(path) == tune.TuningConfig(lex_tile_d=32)  # later knobs at default
-    for knob, value in (("prefetch_depth", 3), ("max_workers", 4), ("backoff_base", 0.5)):
-        path = ref_tune.save(ref_tune.TuningConfig(**{knob: value}), str(tmp_path / "k.json"))
-        with pytest.raises(NotImplementedError, match=f"{knob}={value}.*slice of the port"):
-            tune.load(path)
+    assert tune.load(path) == tune.TuningConfig(lex_tile_d=32)
+    # the executor's knobs are read now: they load at any legal value, and
+    # the config hashes to the reference's
+    knobs = {"prefetch_depth": 3, "max_workers": 4, "backoff_base": 0.5, "backoff_cap": 2.0,
+             "cross_shard_prefetch": False, "writer_reuse": True}
+    path = ref_tune.save(ref_tune.TuningConfig(**knobs), str(tmp_path / "k.json"))
+    assert tune.load(path) == tune.TuningConfig(**knobs)
+    assert tune.load(path).config_hash() == ref_tune.TuningConfig(**knobs).config_hash()
+    with pytest.raises(ValueError, match="prefetch_depth"):
+        tune.TuningConfig(prefetch_depth=0)
     with pytest.raises(ValueError, match="unknown tuning knobs"):
         tune.TuningConfig.from_dict({"meteor": 1})
     # the serving and LM serving slices' knobs are read now: they load at any legal value

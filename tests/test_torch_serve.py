@@ -421,7 +421,7 @@ def test_sweep_and_bench_json_name_the_device(tmp_path):
 
 
 def test_what_waits_for_later_slices_says_so():
-    with pytest.raises(NotImplementedError, match="mesh/executor slice"):
+    with pytest.raises(NotImplementedError, match="mesh slice"):
         port_serve.ShardedLexicalSession(None, None, None, "ql_lm", k=1, chunk_size=1)
     tokens = np.zeros((64, 4), np.int32)
     lens = np.full(64, 4, np.int32)
