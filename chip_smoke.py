@@ -73,7 +73,33 @@ code (nothing is caught and passed over):
                   once more (the same files), and `torch.profiler` over one
                   device-resident job: the device time a segment of the scan
                   kernel, its list merge and everything else.
-5. ``resume``     the ``smoke`` experiment crashed after its first segment,
+5. ``paper``      the paper's preparation and baseline jobs: the anchor-text
+                  job (``make_links`` at 2^23 pages, 2^25 links of up to 6
+                  tokens; ``extract_anchors`` on the card to 64 tokens a
+                  page, byte for byte the CPU's run of the same inputs;
+                  links/s, device memory, the share of pages with
+                  anchors); Fig. 2 over 2^20 docs at the ``mirex`` widths
+                  (``ql_lm``, k 1000): the numpy inverted index's build time
+                  and time a query over 200 queries, the scan through the
+                  lexical kernel at 50, 500, 1,000, 2,500 and 5,000 queries
+                  (median of 3 after a warm-up), the index's answers equal
+                  to the scan's (scores within 3e-5, ids by the near-tie
+                  rule), C1 (time a query at 50 over at 5,000) and C2 (the
+                  index/scan gap at 50 against at 5,000); the
+                  models-per-pass curve on mirex-8M at 1, 2, 4 and 8 models
+                  (the 4-model pass's rankings those of four single passes,
+                  bit for bit) and the CLI's ``--bench`` at ``smoke`` size;
+                  then ``examples/torch_quickstart.py`` in a process of its
+                  own, which must exit with 0.
+6. ``tune``       `tune.search` over the scan job's knobs (``chunk_size``,
+                  ``prefetch_depth``, ``token_pack``; a chunk the plan
+                  cannot cut is left out) on mirex-8M, 6 trials, each
+                  trial's top-k state the default config's bytes; the
+                  winner recorded in a `TuneCache`, then
+                  ``run_experiment(tune_lookup=True)`` must hit and write
+                  the default run's files; a lookup under the CPU's backend
+                  signature must miss.
+7. ``resume``     the ``smoke`` experiment crashed after its first segment,
                   then resumed, on the synchronous and on the pipelined
                   executor: run files byte-identical to an uninterrupted
                   run. Then the reliability layer on two scheduler workers
@@ -82,7 +108,7 @@ code (nothing is caught and passed over):
                   and speculation), a writer error that retries, each with
                   the clean run's files byte for byte, and a permanent crash
                   that surfaces its original error.
-6. ``serve``      retrieval serving through `RetrievalService`: a
+8. ``serve``      retrieval serving through `RetrievalService`: a
                   `DenseSession` over the ``dense_scan`` shape (2^24 docs x
                   256 dims, float32, 16 GiB resident; 4,096 queries, k 1000)
                   and a `LexicalSession` over the ``experiment`` phase's
@@ -91,7 +117,7 @@ code (nothing is caught and passed over):
                   oracles; then a batch-size sweep at 8, 64 and 128; then the
                   lexical corpus resident packed (``token_pack="auto"``),
                   the same waves, every answer the unpacked session's.
-7. ``lm``         LM serving of gemma2-2b at its full width and depth (26
+9. ``lm``         LM serving of gemma2-2b at its full width and depth (26
                   layers, bfloat16, seeded random weights, 6.4 GB) through
                   `make_prefill_step` and `make_serve_step`: 4 prompts of
                   8,192 tokens from `make_lm_batch` (twice the sliding
@@ -118,7 +144,8 @@ code (nothing is caught and passed over):
                   idle time, the top kernels and each flash kernel's
                   device time.
 
-The last three lines are the card's ``nvidia-smi`` name and power limit, a
+Each phase's wall time follows it (``phase_time``). The last three lines
+are the card's ``nvidia-smi`` name and power limit, a
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
 Artifacts go under ``build/chip_smoke/``. Without a CUDA device, or without
 the rest of the repository beside it, the script fails before any result.
@@ -137,7 +164,7 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
-PHASES = ("env", "build", "kernels", "experiment", "resume", "serve", "lm")
+PHASES = ("env", "build", "kernels", "experiment", "paper", "tune", "resume", "serve", "lm")
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet) and the INT32
 # compare/add rate of the CUDA cores, 64 results per clock per SM for compute
@@ -1259,19 +1286,36 @@ def _scan_profile(run, segments: int) -> dict:
             "top": [{"kernel": k[:120], "s": d, "calls": c} for k, d, c in rows[:12]]}
 
 
-def phase_experiment(ctx) -> None:
-    import numpy as np
-    import torch
-
+def _mirex_spec():
+    """mirex-8M: ``bm25-grid`` (5 models) at the ``mirex`` widths, 2^23
+    docs, 64 queries, k 1000, 32 segments of 262,144 docs, one shard."""
     from repro_torch.experiments import grid as exp_grid
-    from repro_torch.experiments import runner
-    from repro_torch.tune import TuningConfig
 
-    spec = dataclasses.replace(
+    return dataclasses.replace(
         exp_grid.get_experiment("bm25-grid"),
         n_docs=1 << 23, n_queries=64, vocab=65_536, max_doc_len=128, k=1000,
         chunk_size=16_384, segment_chunks=16, n_shards=1,
     )
+
+
+def _mirex_collection(ctx):
+    """The experiment phase's mirex-8M collection, prepared here when that
+    phase did not run (``--only``)."""
+    if "collection" not in ctx:
+        from repro_torch.experiments import runner
+
+        ctx["collection"] = runner.prepare_collection(_mirex_spec(), seed=0, device="cuda")
+    return ctx["collection"]
+
+
+def phase_experiment(ctx) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.experiments import runner
+    from repro_torch.tune import TuningConfig
+
+    spec = _mirex_spec()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     coll = runner.prepare_collection(spec, seed=0, device="cuda")
@@ -1284,7 +1328,8 @@ def phase_experiment(ctx) -> None:
     report, sync = _timed(_via_runner(spec, coll, out, pipelined=False), n, out)
     _check_runs(report, spec.n_docs, spec.k)
     ctx["launches"]["lexical_scan_topk"] = sync["launches"]
-    ctx["collection"] = coll  # the serve phase's lexical session scans this corpus
+    # the later phases' mirex-8M corpus, and the default run's files
+    ctx["collection"], ctx["mirex_runs"] = coll, out
     emit("experiment", experiment=spec.name, n_docs=spec.n_docs, n_queries=spec.n_queries,
          vocab=spec.vocab, doc_len=spec.max_doc_len, k=spec.k, models=report["models"],
          prepare_s=prepare_s, prepare_max_memory_allocated=prepare_peak, **sync,
@@ -1407,6 +1452,257 @@ def _assert_same_runs(a: str, b: str, what: str) -> None:
         with open(os.path.join(b, "runs", name), "rb") as f:
             if f.read() != want:
                 raise AssertionError(f"{what}: run file {name} differs from {a}'s")
+
+
+# phase paper: the paper's preparation and baseline jobs on the card. The
+# anchor job at mirex-8M's pages with 4 links a page; Fig. 2 over 2^20 docs
+# at the mirex widths (cut from mirex-8M so that the host builds the numpy
+# index in seconds); the amortization curve on mirex-8M
+ANCHOR_DOCS, ANCHOR_LINKS, ANCHOR_LINK_LEN, ANCHOR_MAX_LEN = 1 << 23, 1 << 25, 6, 64
+FIG2_DOCS, FIG2_QUERIES, FIG2_INDEX_QUERIES = 1 << 20, (50, 500, 1000, 2500, 5000), 200
+BENCH_SIZES = (1, 2, 4, 8)
+# the index ranks as the scan within this (the reference's tests/test_scoring.py)
+INDEX_TOL = 3e-5
+
+
+def _paper_anchors(ctx, dev="cuda", n_docs=ANCHOR_DOCS, n_links=ANCHOR_LINKS) -> None:
+    """The anchor-text job on the card, held to the CPU's bytes."""
+    import torch
+
+    from repro_torch.core import anchors
+    from repro_torch.data import synthetic
+
+    t0 = time.monotonic()
+    dst, toks = synthetic.make_links(n_docs=n_docs, n_links=n_links, vocab=65_536,
+                                     max_anchor_len=ANCHOR_LINK_LEN, seed=3, device=dev)
+    links_s = time.monotonic() - t0
+    d_dst, d_toks = torch.as_tensor(dst, device=dev), torch.as_tensor(toks, device=dev)
+
+    def job():
+        return anchors.extract_anchors(d_dst, d_toks, n_docs=n_docs, max_anchor_len=ANCHOR_MAX_LEN)
+
+    job()  # warm-up: PyTorch's own kernels' first use
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    out, lens = job()
+    torch.cuda.synchronize(dev)
+    job_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t0 = time.monotonic()
+    want_out, want_lens = anchors.extract_anchors(torch.from_numpy(dst), torch.from_numpy(toks),
+                                                  n_docs=n_docs, max_anchor_len=ANCHOR_MAX_LEN)
+    cpu_s = time.monotonic() - t0
+    for name, got, want in (("tokens", out, want_out), ("lengths", lens, want_lens)):
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"anchor {name} on the card differ from the CPU's")
+    emit("paper.anchors", n_docs=n_docs, n_links=n_links, vocab=65_536,
+         link_len=ANCHOR_LINK_LEN, max_anchor_len=ANCHOR_MAX_LEN, links_draw_s=links_s,
+         job_s=job_s, links_per_s=n_links / job_s, cpu_job_s=cpu_s,
+         output_bytes=out.numel() * out.element_size() + lens.numel() * 4,
+         peak_above_inputs=peak, pages_with_anchors_share=float((lens > 0).float().mean()),
+         anchor_tokens=int(lens.sum()), identical_to_cpu=True, nvidia_smi=ctx["smi"])
+
+
+def _paper_fig2(ctx, dev="cuda", n_docs=FIG2_DOCS, sizes=FIG2_QUERIES,
+                n_index=FIG2_INDEX_QUERIES) -> None:
+    """Fig. 2: the scan (the lexical kernel) against the inverted index at
+    50 to 5,000 queries; the index's answers must be the scan's."""
+    import numpy as np
+    import torch
+
+    from _torch_parity import assert_rankings_close
+    from repro_torch.configs import get_config
+    from repro_torch.core import anchors, invindex, scan
+    from repro_torch.core.scoring import get_scorer
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import lexical_scan, ops
+    from repro_torch.tune import TuningConfig
+
+    cfg = get_config("mirex")
+    k, chunk = cfg.k, cfg.chunk_size
+    corpus = synthetic.make_corpus(n_docs=n_docs, vocab=cfg.vocab, max_len=cfg.max_doc_len,
+                                   seed=5, device=dev)
+    docs = (torch.as_tensor(corpus.tokens, device=dev),
+            torch.as_tensor(corpus.lengths, device=dev))
+    stats = anchors.collection_stats(*docs, vocab=cfg.vocab, chunk_size=chunk)
+    queries = synthetic.make_queries(corpus, n_queries=max(sizes), seed=6)
+    t0 = time.monotonic()
+    index = invindex.build_index(corpus.tokens, corpus.lengths, vocab=cfg.vocab)
+    build_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    want_s, want_i = invindex.search(index, queries[:n_index], stats, k=k + DEEPER)
+    index_q = (time.monotonic() - t0) / n_index
+    scorer = get_scorer("ql_lm")
+    points = []
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    for n in sizes:
+        q = torch.as_tensor(queries[:n], device=dev)
+        times = []
+        for rep in range(4):  # a warm-up, then the median of 3
+            t0 = time.perf_counter()
+            state = scan.search_local(q, docs, scorer, k=k, chunk_size=chunk, stats=stats)
+            torch.cuda.synchronize(dev)
+            if rep:
+                times.append(time.perf_counter() - t0)
+        t = float(np.median(times))
+        geo = lexical_scan.launch_geometry(1, n, q.shape[1], n_docs, cfg.max_doc_len, k, chunk,
+                                           TuningConfig().lex_tile_d)
+        points.append({"queries": n, "scan_s": t, "scan_s_per_query": t / n,
+                       "query_groups": geo["n_groups"], "group": geo["group"],
+                       "index_over_scan": index_q / (t / n)})
+    launches = ops.LAUNCHES["lexical_scan_topk"]
+    if launches != 4 * len(sizes):
+        raise AssertionError(f"{launches} scan launches for {4 * len(sizes)} scans")
+    # the index's answers are the scan's (the largest run's first queries)
+    assert_rankings_close(state.scores[:n_index].cpu().numpy(), state.ids[:n_index].cpu().numpy(),
+                          want_s, want_i, what="scan against index", tol=INDEX_TOL)
+    first, last = points[0], points[-1]
+    emit("paper.fig2", n_docs=n_docs, vocab=cfg.vocab, doc_len=cfg.max_doc_len, scorer="ql_lm",
+         k=k, chunk_size=chunk, index_build_s=build_s, index_nnz=index.nnz,
+         index_queries_timed=n_index, index_s_per_query=index_q, points=points,
+         launches=launches, scan_equals_index=True,
+         c1_per_query_first_over_last=first["scan_s_per_query"] / last["scan_s_per_query"],
+         c2_index_over_scan={str(first["queries"]): first["index_over_scan"],
+                             str(last["queries"]): last["index_over_scan"]},
+         nvidia_smi=ctx["smi"])
+
+
+def _paper_bench(ctx, dev="cuda", sizes=BENCH_SIZES) -> None:
+    """The models-per-pass curve on mirex-8M with the CLI's QL-LM grid; a
+    4-model pass must give four single passes' rankings bit for bit. Then
+    the CLI's ``--bench`` once at ``smoke`` size."""
+    import torch
+
+    from repro_torch.core import scan, scoring
+    from repro_torch.experiments import bench
+    from repro_torch.kernels import ops
+    from repro_torch.launch import experiment as cli
+
+    spec, coll = _mirex_spec(), _mirex_collection(ctx)
+    lams = [0.05 + 0.9 * i / max(sizes) for i in range(max(sizes))]
+    scorers = [scoring.make_variant("ql_lm", lam=round(x, 4)) for x in lams]
+    q = torch.as_tensor(coll.queries, device=dev)
+    docs = (torch.as_tensor(coll.corpus.tokens, device=dev),
+            torch.as_tensor(coll.corpus.lengths, device=dev))
+    stats = type(coll.stats)(*(t.to(dev) for t in coll.stats))
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    payload = bench.amortization_curve(q, docs, scorers, k=spec.k, chunk_size=spec.chunk_size,
+                                       stats=stats, sizes=sizes)
+    curve_launches = ops.LAUNCHES["lexical_scan_topk"]
+    if curve_launches != 4 * len(sizes):  # a warm-up and 3 timed passes a size
+        raise AssertionError(f"{curve_launches} launches for {4 * len(sizes)} passes")
+    path = bench.write_bench_json(payload, os.path.join(OUT, "BENCH_experiments.json"))
+    multi = scan.search_local_multi(q, docs, tuple(scorers[:4]), k=spec.k,
+                                    chunk_size=spec.chunk_size, stats=stats)
+    for m, s in enumerate(scorers[:4]):
+        single = scan.search_local(q, docs, s, k=spec.k, chunk_size=spec.chunk_size, stats=stats)
+        if not (torch.equal(multi.ids[m], single.ids)
+                and torch.equal(multi.scores[m].view(torch.int32), single.scores.view(torch.int32))):
+            raise AssertionError(f"{s.name}: the 4-model pass differs from its single pass")
+    del docs
+    out = os.path.join(OUT, "cli-bench")
+    shutil.rmtree(out, ignore_errors=True)
+    cli_json = os.path.join(OUT, "BENCH_experiments_smoke.json")
+    ops.reset_launches()
+    cli.main(["--experiment", "smoke", "--out", out, "--device", dev, "--no-trace", "--bench",
+              "--bench-out", cli_json])
+    cli_launches = ops.LAUNCHES["lexical_scan_topk"]
+    with open(cli_json) as f:
+        cli_payload = json.load(f)
+    if cli_payload["sizes"] != [1, 2, 4, 8] or cli_launches < 16:
+        raise AssertionError(f"--bench: sizes {cli_payload['sizes']}, {cli_launches} launches")
+    emit("paper.bench", experiment=spec.name, n_docs=spec.n_docs, n_queries=spec.n_queries,
+         k=spec.k, models=payload["models"], curve=payload["curve"],
+         amortization_x=payload["amortization_x"], launches=curve_launches, written=path,
+         four_model_pass_equals_single_passes=True,
+         cli_smoke={"curve": cli_payload["curve"], "launches": cli_launches},
+         nvidia_smi=ctx["smi"])
+
+
+def phase_paper(ctx, dev="cuda") -> None:
+    import subprocess
+
+    _paper_anchors(ctx, dev)
+    _paper_fig2(ctx, dev)
+    _paper_bench(ctx, dev)
+    # the port's quickstart, in a process of its own on the card
+    t0 = time.monotonic()
+    run = subprocess.run([sys.executable, os.path.join("examples", "torch_quickstart.py")]
+                         + ([] if dev == "cuda" else ["--device", dev]),
+                         cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if run.returncode != 0 or "scan == index scores" not in run.stdout:
+        raise AssertionError(f"torch_quickstart.py exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    emit("paper.quickstart", returncode=run.returncode, wall_s=time.monotonic() - t0,
+         last_line=run.stdout.strip().splitlines()[-1], nvidia_smi=ctx["smi"])
+
+
+def phase_tune(ctx, dev="cuda", chunk_values=(8192, 16_384, 24_576, 32_768)) -> None:
+    """The scan job's knob search on mirex-8M, its winner cached and looked
+    up by ``run_experiment(tune_lookup=True)``: every trial's state is the
+    default's, the lookup hits and writes the default run's files, and a
+    lookup under the CPU's backend misses."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.experiments import runner
+    from repro_torch.kernels import ops
+    from repro_torch.tune import targets
+
+    spec, coll = _mirex_spec(), _mirex_collection(ctx)
+    root = os.path.join(OUT, "tune")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cache_file = os.path.join(root, "tune_cache.json")
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    t0 = time.monotonic()
+    target = targets.scan_target(spec, coll, chunk_values=chunk_values, prefetch_values=(1, 2, 4),
+                                 repeats=1, device=dev, name="mirex-8M")
+    # 24,576 rows do not cut 2^23 docs into whole chunks: the space leaves it out
+    uncut = [c for c in chunk_values if spec.n_docs % c]
+    if not uncut or any(c.chunk_size in uncut for c in target.space.candidates()):
+        raise AssertionError("the scan space admits a chunk the plan cannot cut")
+    block = targets.tune_target(target, budget=6, seed=0, cache_path=cache_file)
+    search_s = time.monotonic() - t0
+    search_launches = ops.LAUNCHES["lexical_scan_topk"]
+    del target
+    torch.cuda.empty_cache()
+    if search_launches < 1:
+        raise AssertionError("the search launched no scan kernel")
+
+    default_runs = ctx.get("mirex_runs")
+    if default_runs is None:  # phase run alone (--only tune): the default run first
+        default_runs = os.path.join(root, "default")
+        runner.run_experiment(spec, out_dir=default_runs, collection=coll, device=dev)
+    out = os.path.join(root, "lookup")
+    ops.reset_launches()
+    report = runner.run_experiment(spec, out_dir=out, collection=coll, device=dev,
+                                   tune_lookup=True, tune_cache=cache_file)
+    tuning = report["job"]["tuning"]
+    if not tuning["cache_hit"] or tuning["config_hash"] != block["best"]["config_hash"]:
+        raise AssertionError(f"--tune lookup: {tuning}, recorded {block['best']}")
+    if ops.LAUNCHES["lexical_scan_topk"] != report["job"]["segments_run"]:
+        raise AssertionError(f"{ops.LAUNCHES['lexical_scan_topk']} launches for "
+                             f"{report['job']['segments_run']} segments")
+    _assert_same_runs(default_runs, out, "tune lookup")
+    cpu_cfg, cpu_hit = tune.best_config("scan_job", shape=block["shape"],
+                                        backend=tune.backend_sig("cpu"), path=cache_file)
+    if cpu_hit or cpu_cfg != tune.DEFAULT:
+        raise AssertionError("a lookup under the CPU's backend found the card's winner")
+    emit("tune", experiment=spec.name, shape=block["shape"], backend=block["backend"],
+         budget=6, space_size=block["space_size"], trials=block["trials"],
+         default=block["default"], best=block["best"], speedup_x=block["speedup_x"],
+         search_s=search_s, search_launches=search_launches, trials_byte_identical=True,
+         lookup={"cache_hit": True, "config_hash": tuning["config_hash"],
+                 "chunk_size": tuning["chunk_size"], "pack_resolved": tuning["pack_resolved"],
+                 "launches": report["job"]["segments_run"], "run_files_identical": True},
+         cpu_backend_lookup_hit=False, nvidia_smi=ctx["smi"])
 
 
 def phase_resume(ctx) -> None:
@@ -1576,15 +1872,7 @@ def phase_serve(ctx) -> None:
     torch.cuda.empty_cache()
 
     # lexical: the experiment phase's corpus, 4 waves of 256 as serve_search does
-    if "collection" not in ctx:  # phase run alone (--only serve): prepare it
-        from repro_torch.experiments import grid as exp_grid
-        from repro_torch.experiments import runner
-
-        ctx["collection"] = runner.prepare_collection(dataclasses.replace(
-            exp_grid.get_experiment("bm25-grid"), n_docs=1 << 23, n_queries=64,
-            vocab=cfg.vocab, max_doc_len=cfg.max_doc_len, chunk_size=chunk),
-            seed=0, device="cuda")
-    coll = ctx["collection"]
+    coll = _mirex_collection(ctx)
     session = LexicalSession(coll.corpus.tokens, coll.corpus.lengths, cfg.scorer, k=k,
                              chunk_size=chunk, stats=coll.stats)
     n_wave = 256
@@ -1963,11 +2251,13 @@ def main(argv=None) -> int:
 
     ctx = {"kernels": {}, "launches": {}, "smi": gpu_name_and_power_limit()}
     table = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-             "experiment": phase_experiment, "resume": phase_resume, "serve": phase_serve,
-             "lm": phase_lm}
+             "experiment": phase_experiment, "paper": phase_paper, "tune": phase_tune,
+             "resume": phase_resume, "serve": phase_serve, "lm": phase_lm}
     for p in PHASES:
         if p in only:
+            t0 = time.monotonic()
             table[p](ctx)
+            emit("phase_time", name=p, seconds=time.monotonic() - t0)
     for name, entry in ctx["kernels"].items():
         entry["launches"] = ctx["launches"].get(name, 0)
     print(ctx["smi"])

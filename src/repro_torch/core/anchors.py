@@ -1,10 +1,13 @@
-"""Corpus-preparation MapReduce job: collection statistics.
+"""Corpus-preparation MapReduce jobs: collection statistics + anchor text.
 
-The paper runs a collection-statistics job before searching; its output
-feeds the LM and BM25 scorers. The combiner state is additive, so the job is
-a chunked fold (:func:`repro_torch.core.pipeline.fold_chunks`) over exact
-int32 counters. Anchor-text extraction (``repro.core.anchors.
-extract_anchors``) waits for a later slice.
+The paper runs two jobs before searching: (1) collection statistics that
+feed the LM and BM25 scorers (term/document frequencies), and (2)
+anchor-text extraction, which groups the link anchor strings pointing *at*
+each page into that page's searchable representation (§3.2). The
+statistics job's combiner state is additive, so it is a chunked fold
+(:func:`repro_torch.core.pipeline.fold_chunks`) over exact int32 counters;
+the anchor job is integer work on the device the links live on (a stable
+sort by destination, each link's rank within its group, one scatter).
 """
 
 from __future__ import annotations
@@ -58,3 +61,50 @@ def collection_stats(
     cf, df, total, n_docs = pipeline.fold_chunks((d_tokens, d_len), chunk_size, fold, state0)
     avg = total.to(torch.float32) / torch.clamp(n_docs.to(torch.float32), min=1.0)
     return CollectionStats(cf=cf, df=df, total_terms=total, n_docs=n_docs, avg_doc_len=avg)
+
+
+def extract_anchors(
+    link_dst: torch.Tensor,
+    link_tokens: torch.Tensor,
+    *,
+    n_docs: int,
+    max_anchor_len: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Anchor-text extraction: group anchor strings by destination page.
+
+    ``link_dst [E]`` destination doc ids, ``link_tokens [E, L_a]`` anchor
+    token ids (PAD_TOKEN-padded). Returns the anchor-text document
+    representation ``(tokens [n_docs, max_anchor_len], lens [n_docs] int32)``,
+    the tokens in ``link_tokens``' dtype, as the reference lays it out: the
+    ``r``-th link to a page (in link order) puts its non-PAD tokens at
+    columns ``r * L_a + j``, so a short anchor leaves PAD gaps inside the
+    row, and tokens past ``max_anchor_len`` are dropped.
+
+    Destinations index rows as the reference's ``.at[...].set(mode="drop")``
+    does: a negative id in ``[-n_docs, 0)`` counts from the end, any other
+    id outside ``[0, n_docs)`` is dropped. Only the tokens kept are
+    scattered (an out-of-range index would be a device-side assert on a
+    card), in two passes in the reference's update order — the wrapped
+    negative groups first — so that where a page is reached both ways its
+    own group's tokens win, as they do there.
+    """
+    e, l_a = link_tokens.shape
+    dev = link_tokens.device
+    out = torch.full((n_docs, max_anchor_len), PAD_TOKEN, dtype=link_tokens.dtype, device=dev)
+    if e:
+        dst_sorted, order = torch.sort(link_dst, stable=True)
+        toks_sorted = link_tokens[order]
+        # rank of each link within its destination group
+        group_start = torch.searchsorted(dst_sorted, dst_sorted, side="left")
+        rank = torch.arange(e, device=dev) - group_start
+        cols = rank[:, None] * l_a + torch.arange(l_a, device=dev)[None, :]
+        wrapped = dst_sorted < 0
+        rows = torch.where(wrapped, dst_sorted.long() + n_docs, dst_sorted.long())
+        keep = (toks_sorted != PAD_TOKEN) & (cols < max_anchor_len)
+        keep &= ((rows >= 0) & (rows < n_docs))[:, None]
+        target = rows[:, None] * max_anchor_len + cols
+        flat = out.view(-1)
+        for sel in (keep & wrapped[:, None], keep & ~wrapped[:, None]):
+            flat[target[sel]] = toks_sorted[sel]
+    lens = (out != PAD_TOKEN).sum(-1, dtype=torch.int32)
+    return out, lens

@@ -16,7 +16,9 @@ seconds instead of minutes:
   unless a tie makes the order depend on the sort (then the full sort runs).
 
 :func:`make_dense_corpus` and :func:`make_lm_batch` are the reference's
-numpy code as it is. Links and the graph and recsys generators wait for the
+numpy code as it is. :func:`make_links` (the anchor job's link graph) draws
+its destinations through the same replayed ``choice`` and fills its anchor
+rows by one masked assignment. The graph and recsys generators wait for the
 slices that use them.
 """
 
@@ -100,6 +102,34 @@ def make_queries(
         picks = rng.integers(0, dlen, size=qlen)
         q[i, :qlen] = corpus.tokens[doc, picks]
     return q
+
+
+def make_links(
+    *,
+    n_docs: int,
+    n_links: int,
+    vocab: int,
+    max_anchor_len: int = 6,
+    seed: int = 3,
+    device="cpu",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Power-law link graph + anchor token strings for the anchor job:
+    ``(dst [n_links] int32, tokens [n_links, max_anchor_len] int32)``.
+
+    The reference's draws in its order: destinations by
+    ``rng.choice(n_docs, p=w)`` with ``w ∝ rank^-0.9`` (replayed by
+    :func:`_zipf_tokens`, whose CDF is that ``w``'s), then each anchor's
+    length, then its Zipf tokens. Each anchor fills its row from column 0,
+    which is the row-major order of the length mask.
+    """
+    rng = np.random.default_rng(seed)
+    # preferential-attachment-ish dst distribution
+    dst = _zipf_tokens(rng, n_links, n_docs, 0.9, device)
+    tokens = np.full((n_links, max_anchor_len), PAD_TOKEN, np.int32)
+    lens = rng.integers(1, max_anchor_len + 1, size=n_links)
+    flat = _zipf_tokens(rng, int(lens.sum()), vocab, 1.05, device)
+    tokens[np.arange(max_anchor_len)[None, :] < lens[:, None]] = flat
+    return dst, tokens
 
 
 def make_dense_corpus(*, n_docs: int, dim: int, seed: int = 4) -> np.ndarray:

@@ -2,13 +2,14 @@
 
   * `grid`   — scorer-variant grids + the named-experiment registry;
   * `job`    — segment-checkpointed, kill/resume-bit-identical scan jobs;
-  * `runner` — prepare → scan → TREC run files → `repro_torch.eval` report.
+  * `runner` — prepare → scan → TREC run files → `repro_torch.eval` report;
+  * `bench`  — the models-per-pass amortization curve
+               (``BENCH_experiments.json``).
 
-`launch/experiment.py` is the CLI over all of it. The models-per-pass
-benchmark (``repro.experiments.bench``) waits for the benchmark slice.
+`launch/experiment.py` is the CLI over all of it.
 """
 
-from repro_torch.experiments import grid, job, runner
+from repro_torch.experiments import bench, grid, job, runner
 from repro_torch.experiments.grid import (
     EXPERIMENTS,
     ExperimentSpec,
@@ -22,6 +23,7 @@ from repro_torch.experiments.job import ScanJobResult, read_progress, run_scan_j
 from repro_torch.experiments.runner import prepare_collection, run_experiment
 
 __all__ = [
+    "bench",
     "grid",
     "job",
     "runner",

@@ -132,14 +132,17 @@ def run_experiment(
     trace there. A ``tuning`` whose ``token_pack`` is not ``"none"`` packs
     the corpus on the host before the scan (`packing.pack_corpus`) when
     every scorer is lexical; the run files are the unpacked run's, byte for
-    byte. ``tune_lookup``/``tune_cache`` (the autotune winner cache) wait
-    for the autotune slice and raise ``NotImplementedError``.
+    byte.
+
+    ``tune_lookup=True`` looks the spec's shape signature up in the
+    persistent autotune winner cache (``tune_cache`` path, default
+    resolution in `repro_torch.tune.cache`) under this device's backend
+    signature and runs under the recorded winner — or under the defaults on
+    a miss. Either way the report's ``job.tuning`` block records the config
+    hash, source and whether the cache hit; run files are byte-identical
+    under every config (the `repro_torch.tune` contract).
     """
     dev = resolve_device(device)
-    if tune_lookup or tune_cache is not None:
-        raise NotImplementedError(
-            "the autotune winner cache (--tune) waits for the autotune slice of the port"
-        )
     if fail_at_segment is not None:
         warnings.warn(
             "fail_at_segment/fail_at_shard are deprecated; use "
@@ -153,12 +156,24 @@ def run_experiment(
         else:
             faults.add(legacy.specs[0])
 
+    if tuning is not None and tune_lookup:
+        raise ValueError("pass either tuning= or tune_lookup=True, not both")
     tuning_source = "explicit" if tuning is not None else "default"
+    cache_hit = False
+    if tune_lookup:
+        tuning, cache_hit = tune.best_config(
+            "scan_job",
+            shape=tune.scan_shape_sig_for(spec),
+            backend=tune.backend_sig(dev),
+            path=tune_cache,
+        )
+        tuning_source = "cache"
+
     prev_obs = None
     if trace_out is not None:
         prev_obs = obs.install(obs.Tracer(), obs.Metrics())
     try:
-        with tune.use(tuning, source=tuning_source):
+        with tune.use(tuning, source=tuning_source, cache_hit=cache_hit):
             return _run_experiment_traced(
                 spec,
                 out_dir=out_dir,
@@ -173,6 +188,7 @@ def run_experiment(
                 trace_out=trace_out,
                 tuning=tuning,
                 tuning_source=tuning_source,
+                cache_hit=cache_hit,
                 device=dev,
             )
     finally:
@@ -195,6 +211,7 @@ def _run_experiment_traced(
     trace_out: str | None,
     tuning: TuningConfig | None,
     tuning_source: str,
+    cache_hit: bool,
     device: torch.device,
 ) -> dict:
     """The lifecycle body, running under whatever instruments are installed."""
@@ -230,13 +247,8 @@ def _run_experiment_traced(
             torch.as_tensor(coll.corpus.lengths, device=device),
         )
 
-    # the tuned chunk replaces the spec's for the scan fold only, and only
-    # when it divides every shard (a knob may be ignored, never fail a job)
-    chunk = spec.chunk_size
-    if cfg.chunk_size is not None:
-        per_shard = spec.n_docs // max(1, spec.n_shards)
-        if spec.n_docs % max(1, spec.n_shards) == 0 and per_shard % cfg.chunk_size == 0:
-            chunk = cfg.chunk_size
+    # the tuned chunk replaces the spec's for the scan fold only
+    chunk = cfg.scan_chunk(spec.chunk_size, n_docs=spec.n_docs, n_shards=spec.n_shards)
 
     # shards run on the run's one device (one card: one worker unless
     # max_workers asks for more)
@@ -332,7 +344,7 @@ def _run_experiment_traced(
             "tuning": {
                 "config_hash": cfg.config_hash(),
                 "source": tuning_source,
-                "cache_hit": False,
+                "cache_hit": cache_hit,
                 "overrides": cfg.overrides(),
                 "chunk_size": chunk,
                 "token_pack": cfg.token_pack,

@@ -15,7 +15,10 @@ The lifecycle is prepare → scan job → run files → eval (see
 segment under ``<out>/ckpt`` — kill the process mid-run and re-invoke with
 the same ``--out`` to resume bit-identically. ``--token-pack
 auto|8|16|bitpack`` packs the corpus segments (`repro_torch.core.packing`);
-the run files are the unpacked run's.
+the run files are the unpacked run's. ``--tune`` runs under the autotune
+winner cache's entry for this job's shape on this device (the defaults on a
+miss; ``--tune-cache`` names the file). ``--bench`` additionally sweeps the
+models-per-pass amortization curve into ``BENCH_experiments.json``.
 
 Chaos testing goes through the reliability layer: ``--fault-spec`` (or
 ``--fault``) injects deterministic faults (repeatable;
@@ -29,8 +32,7 @@ single-crash alias.)
 
 Same flags as `repro.launch.experiment` plus ``--device`` (default
 ``cuda``); ``--pipeline`` (the overlapped executor) is the default, as
-there. Not in this slice, and refused with a message: ``--tune``,
-``--tune-cache`` and ``--bench``.
+there.
 """
 
 from __future__ import annotations
@@ -38,8 +40,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+import torch
+
 from repro_torch import tune
 from repro_torch.cluster import FaultSchedule, build_schedule
+from repro_torch.core import scoring
+from repro_torch.device import resolve_device
+from repro_torch.experiments import bench as exp_bench
 from repro_torch.experiments import grid as exp_grid
 from repro_torch.experiments import runner
 
@@ -130,18 +137,6 @@ def print_report(report: dict) -> None:
         print(f"  {model}: ΔAP={sig['diff']:+.4f}  p={sig['p_value']:.4f}")
 
 
-def _refuse(args) -> None:
-    """Flags whose machinery waits for a later slice of the port."""
-    pending = [
-        ("--tune", args.tune, "autotune"),
-        ("--tune-cache", args.tune_cache is not None, "autotune"),
-        ("--bench", args.bench, "benchmark"),
-    ]
-    for flag, given, slice_name in pending:
-        if given:
-            raise SystemExit(f"{flag} waits for the {slice_name} slice of the port")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--experiment", default=None,
@@ -206,12 +201,18 @@ def main(argv=None):
     ap.add_argument("--no-trace", action="store_true",
                     help="disable tracing (metrics-only run)")
     ap.add_argument("--tune", action="store_true",
-                    help="autotune winner cache (autotune slice)")
+                    help="look this job's shape up in the autotune winner "
+                         "cache under this device's backend and run under "
+                         "the recorded TuningConfig (defaults on a miss; "
+                         "artifacts byte-identical either way — tuning "
+                         "changes speed, never bytes)")
     ap.add_argument("--tune-cache", default=None,
-                    help="autotune winner-cache path (autotune slice)")
+                    help="autotune winner-cache path (default: "
+                         "$REPRO_TUNE_CACHE or results/tune_cache.json)")
     ap.add_argument("--tuning-config", default=None,
                     help="run under an explicit TuningConfig JSON file "
-                         "(flat knob dict, see repro_torch.tune.save)")
+                         "(flat knob dict, see repro_torch.tune.save); "
+                         "mutually exclusive with --tune")
     ap.add_argument("--token-pack", default=None,
                     choices=["none", "auto", "8", "16", "bitpack"],
                     help="packed corpus segments (core.packing): store scan "
@@ -220,12 +221,15 @@ def main(argv=None):
                          "identical to the unpacked run. Overrides the "
                          "tuning config's token_pack knob")
     ap.add_argument("--bench", action="store_true",
-                    help="models-per-pass amortization curve (benchmark slice)")
+                    help="also sweep the models-per-pass amortization curve")
+    ap.add_argument("--bench-sizes", type=int, nargs="+", default=[1, 2, 4, 8])
+    ap.add_argument("--bench-out", default="BENCH_experiments.json")
     args = ap.parse_args(argv)
+    if args.tune and args.tuning_config:
+        raise SystemExit("--tune and --tuning-config are mutually exclusive")
     if args.token_pack is not None and args.tune:
         raise SystemExit("--token-pack and --tune are mutually exclusive "
                          "(the cached winner already fixes token_pack)")
-    _refuse(args)
 
     spec = _spec_from_args(args)
     out_dir = args.out if args.experiment is None else f"{args.out}/{spec.name}"
@@ -253,7 +257,7 @@ def main(argv=None):
         base = tuning if tuning is not None else tune.TuningConfig()
         tuning = base.replace(token_pack=args.token_pack)
 
-    coll = runner.prepare_collection(spec, seed=args.seed, device=args.device)
+    coll = runner.prepare_collection(spec, seed=args.seed, device=args.device)  # shared with --bench
     report = runner.run_experiment(
         spec,
         out_dir=out_dir,
@@ -269,10 +273,37 @@ def main(argv=None):
         speculative=args.speculative,
         trace_out=trace_out,
         tuning=tuning,
+        tune_lookup=args.tune,
+        tune_cache=args.tune_cache,
         device=args.device,
     )
     print_report(report)
     print(f"wrote {out_dir}/report.json")
+
+    if args.bench:
+        # bench grid: enough QL-LM smoothing points for the largest size,
+        # scanned on the run's device
+        dev = resolve_device(args.device)
+        lams = [0.05 + 0.9 * i / max(args.bench_sizes) for i in range(max(args.bench_sizes))]
+        scorers = [scoring.make_variant("ql_lm", lam=round(l, 4)) for l in lams]
+        payload = exp_bench.amortization_curve(
+            torch.as_tensor(coll.queries, device=dev),
+            (torch.as_tensor(coll.corpus.tokens, device=dev),
+             torch.as_tensor(coll.corpus.lengths, device=dev)),
+            scorers,
+            k=spec.k,
+            chunk_size=spec.chunk_size,
+            stats=coll.stats,
+            sizes=tuple(args.bench_sizes),
+        )
+        path = exp_bench.write_bench_json(payload, args.bench_out)
+        for pt in payload["curve"]:
+            speedup = pt.get("speedup_vs_independent")
+            extra = f"  {speedup:5.2f}x vs independent passes" if speedup else ""
+            print(f"  {pt['models']:3d} models/pass: {pt['wall_s']*1e3:8.1f} ms "
+                  f"({pt['s_per_model']*1e3:7.1f} ms/model){extra}")
+        print(f"amortization {payload.get('amortization_x', 1.0):.2f}x "
+              f"({payload['sizes'][0]} -> {payload['sizes'][-1]} models); wrote {path}")
 
 
 if __name__ == "__main__":

@@ -121,14 +121,16 @@ class TuningConfig:
         return {k: v for k, v in self.describe().items() if v != base[k]}
 
     @classmethod
-    def from_dict(cls, d: dict) -> "TuningConfig":
+    def from_dict(cls, d: dict, *, strict: bool = True) -> "TuningConfig":
         """Build from a (possibly partial) knob dict, such as one the
-        reference's ``tune.save`` wrote. Unknown knob names are rejected."""
+        reference's ``tune.save`` wrote. ``strict`` rejects unknown knob
+        names — the stale-cache guard: an entry recorded under a different
+        knob space must not half-apply; otherwise they are left out."""
         fields = {f.name for f in dataclasses.fields(cls)}
         unknown = set(d) - fields
-        if unknown:
+        if unknown and strict:
             raise ValueError(f"unknown tuning knobs {sorted(unknown)}")
-        return cls(**d)
+        return cls(**{k: v for k, v in d.items() if k in fields})
 
     def config_hash(self) -> str:
         """Short content hash of (knob space version, full knob table),
@@ -138,6 +140,16 @@ class TuningConfig:
             sort_keys=True,
         )
         return hashlib.sha256(payload.encode()).hexdigest()[:12]
+
+    def scan_chunk(self, declared: int, *, n_docs: int, n_shards: int) -> int:
+        """The scan fold's chunk: the tuned ``chunk_size`` where it cuts
+        every shard into whole chunks (the plan's rule), else the declared
+        one — a knob may be ignored, never fail a job."""
+        shards = max(1, n_shards)
+        if (self.chunk_size is not None and n_docs % shards == 0
+                and (n_docs // shards) % self.chunk_size == 0):
+            return self.chunk_size
+        return declared
 
     def lex_block(self, chunk_size: int, n_rows: int | None = None) -> int:
         """Lexical-kernel doc tile for a scan over ``chunk_size`` chunks.
@@ -164,13 +176,19 @@ DEFAULT = TuningConfig()
 
 @dataclasses.dataclass(frozen=True)
 class ActiveTuning:
-    """The installed config plus where it came from (default | explicit)."""
+    """The installed config plus where it came from (default | explicit |
+    file | cache | search) and whether a winner-cache lookup hit."""
 
     config: TuningConfig = DEFAULT
     source: str = "default"
+    cache_hit: bool = False
 
     def provenance(self) -> dict:
-        return {"config_hash": self.config.config_hash(), "source": self.source}
+        return {
+            "config_hash": self.config.config_hash(),
+            "source": self.source,
+            "cache_hit": self.cache_hit,
+        }
 
 
 _LOCK = threading.Lock()
@@ -189,12 +207,29 @@ def _install(record: ActiveTuning) -> ActiveTuning:
     return prev
 
 
+def set_active(
+    config: TuningConfig | None,
+    *,
+    source: str = "explicit",
+    cache_hit: bool = False,
+) -> ActiveTuning:
+    """Install ``config`` as the process-wide active tuning; returns the
+    *previous* record so callers can restore it. ``None`` restores defaults."""
+    return _install(ActiveTuning() if config is None else ActiveTuning(config, source, cache_hit))
+
+
 @contextlib.contextmanager
-def use(config: TuningConfig | None, *, source: str = "explicit") -> Iterator[ActiveTuning]:
-    """Install ``config`` as the process-wide active tuning for the body
-    (``None`` installs the defaults), then restore the previous one. A
-    module global, not thread-local, as in the reference."""
-    prev = _install(ActiveTuning() if config is None else ActiveTuning(config, source))
+def use(
+    config: TuningConfig | None,
+    *,
+    source: str = "explicit",
+    cache_hit: bool = False,
+) -> Iterator[ActiveTuning]:
+    """Scoped :func:`set_active` (``None`` installs the defaults): the
+    tuning search measures every candidate under ``with use(candidate)``
+    and leaks nothing. A module global, not thread-local, as in the
+    reference."""
+    prev = set_active(config, source=source, cache_hit=cache_hit)
     try:
         yield active()
     finally:

@@ -18,8 +18,10 @@ no host sync. The pipelined executor on the card: host → card prefetch on a
 copy stream equals the slices within its memory bound, the snapshot
 checkpoints equal the synchronous job's, two workers on two streams give
 the synchronous job's bits under seeded chaos, launches count exactly under
-threads, and a segment fold makes no host sync. ``chip_smoke.py`` makes the
-same checks at the full width.
+threads, and a segment fold makes no host sync. The anchor job on the card
+gives the CPU's bytes, a grid's pass gives each model's single pass, and
+the index ranks as the scan. ``chip_smoke.py`` makes the same checks at
+the full width.
 """
 
 import numpy as np
@@ -651,3 +653,64 @@ def test_cuda_segment_fold_and_snapshot_make_no_host_sync():
     host = snap.wait()
     assert torch.equal(got.ids, want.ids) and torch.equal(host.ids, want.ids.cpu())
     assert torch.equal(host.scores.view(torch.int32), want.scores.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_anchor_job_is_the_cpus():
+    """The anchor job on the card gives the CPU's rows and lengths byte for
+    byte, wrapped negative destinations and collisions included, and the
+    link graph drawn on the card is the CPU's."""
+    from repro_torch.data import synthetic
+
+    dev = _card()
+    dst, toks = synthetic.make_links(n_docs=4096, n_links=1 << 16, vocab=4096, seed=1)
+    dst_c, toks_c = synthetic.make_links(n_docs=4096, n_links=1 << 16, vocab=4096, seed=1,
+                                         device=dev)
+    assert dst.tobytes() == dst_c.tobytes() and toks.tobytes() == toks_c.tobytes()
+    dst[:64] = np.arange(-64, 0)  # these wrap onto rows 4032..4095
+    dst[64:72] = [4096, 5000, -4097, -9999, 4095, 4095, 0, 0]
+    for max_anchor_len in (64, 7):
+        want = anchors.extract_anchors(torch.as_tensor(dst), torch.as_tensor(toks),
+                                       n_docs=4096, max_anchor_len=max_anchor_len)
+        got = anchors.extract_anchors(torch.as_tensor(dst, device=dev),
+                                      torch.as_tensor(toks, device=dev),
+                                      n_docs=4096, max_anchor_len=max_anchor_len)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_pass_and_index_agree():
+    """On the card a 4-model pass gives each model's single pass bit for
+    bit (the amortization curve's parity), the curve's clock stops after the
+    kernel, and the index, given statistics on the card, ranks as the scan."""
+    from _torch_parity import assert_rankings_close
+    from repro_torch.core import invindex, scan
+    from repro_torch.data import synthetic
+    from repro_torch.experiments import bench
+
+    dev = _card()
+    corpus = synthetic.make_corpus(n_docs=8192, vocab=4096, max_len=64, seed=11)
+    queries = synthetic.make_queries(corpus, n_queries=32, seed=12)
+    docs = (torch.as_tensor(corpus.tokens, device=dev), torch.as_tensor(corpus.lengths, device=dev))
+    stats = anchors.collection_stats(*docs, vocab=4096, chunk_size=1024)
+    q = torch.as_tensor(queries, device=dev)
+    grid = [scoring.make_variant("ql_lm", lam=lam) for lam in (0.05, 0.15, 0.3, 0.5)]
+    multi = scan.search_local_multi(q, docs, tuple(grid), k=20, chunk_size=1024, stats=stats)
+    for m, s in enumerate(grid):
+        single = scan.search_local(q, docs, s, k=20, chunk_size=1024, stats=stats)
+        assert torch.equal(multi.ids[m], single.ids)
+        assert torch.equal(multi.scores[m].view(torch.int32), single.scores.view(torch.int32))
+    payload = bench.amortization_curve(q, docs, grid, k=20, chunk_size=1024, stats=stats,
+                                       sizes=(1, 2, 4), repeats=2)
+    assert payload["curve"][0]["speedup_vs_independent"] == 1.0
+    assert all(p["wall_s"] > 0 for p in payload["curve"])
+    idx = invindex.build_index(corpus.tokens, corpus.lengths, vocab=4096)
+    istats = invindex.stats_from_index(idx)
+    want_s, want_i = invindex.search(idx, queries, type(stats)(*(t.to(dev) for t in istats)),
+                                     k=20 + DEEPER)
+    got = scan.search_local(q, docs, scoring.get_scorer("ql_lm"), k=20, chunk_size=1024,
+                            stats=type(stats)(*(t.to(dev) for t in istats)))
+    assert_rankings_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(), want_s, want_i,
+                          tol=3e-5)

@@ -150,12 +150,6 @@ def test_cli_writes_the_same_artifacts(tmp_path, port_clean, capsys):
         assert json.load(f)["metrics"] == report["metrics"]
 
 
-@pytest.mark.parametrize("flag", [["--tune"], ["--bench"]])
-def test_cli_refuses_what_waits_for_later_slices(tmp_path, flag):
-    with pytest.raises(SystemExit, match="slice of the port"):
-        cli.main(["--experiment", "smoke", "--out", str(tmp_path), "--device", "cpu", *flag])
-
-
 @pytest.mark.parametrize(
     "flag", [["--pipeline"], ["--max-retries", "1"], ["--speculative"],
              ["--fault-seed", "3", "--max-retries", "1"]],
@@ -174,13 +168,10 @@ def test_cli_runs_the_executor_flags(tmp_path, port_clean, flag):
     assert bool(job["faults_fired"]) is ("--fault-seed" in flag)
 
 
-def test_runner_refuses_what_waits_for_later_slices(tmp_path):
+def test_runner_runs_packing_and_every_fault_kind(tmp_path):
     from repro_torch.tune import TuningConfig
 
-    for kw in ({"tune_lookup": True}, {"tune_cache": str(tmp_path / "cache.json")}):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            runner.run_experiment(SMOKE, out_dir=str(tmp_path), device="cpu", **kw)
-    # token_pack runs now (the packing slice): its artifacts are checked below
+    # token_pack runs (the packing slice): its artifacts are checked below
     packed = _run_port(tmp_path / "packed", tuning=TuningConfig(token_pack="bitpack"))
     assert packed["job"]["tuning"]["pack_resolved"] == "bitpack"
     # every fault kind constructs now (the executor slice)

@@ -417,7 +417,7 @@ def test_sweep_and_bench_json_name_the_device(tmp_path):
         data = json.load(f)
     assert data["provenance"]["torch_version"] == torch.__version__
     assert data["provenance"]["backend"] == ("cuda" if torch.cuda.is_available() else "cpu")
-    assert set(data["tuning"]) == {"config_hash", "source"}
+    assert set(data["tuning"]) == {"config_hash", "source", "cache_hit"}  # the reference's keys
 
 
 def test_what_waits_for_later_slices_says_so():
