@@ -117,7 +117,25 @@ code (nothing is caught and passed over):
                   oracles; then a batch-size sweep at 8, 64 and 128; then the
                   lexical corpus resident packed (``token_pack="auto"``),
                   the same waves, every answer the unpacked session's.
-9. ``lm``         LM serving of gemma2-2b at its full width and depth (26
+9. ``mesh``       the mesh on one card, every mesh entry ``cuda:0`` and one
+                  CUDA stream a shard: `cluster.search_mesh` over mirex-8M's
+                  collection (``bm25-grid``, 5 models, 64 queries, k 1000)
+                  on a (1,) mesh, a (4,) mesh over ``data`` and a (2, 2)
+                  mesh over ``(data, model)``; each call's merged state
+                  must equal, byte for byte, the one-shard scan job's
+                  (`run_sharded_scan_job`, run in the same call), with one
+                  kernel launch a shard; each call's seconds, docs/s and
+                  device memory above the collection; one call under
+                  ``set_sync_debug_mode("error")`` must make no host sync;
+                  `collection_stats` over 4 shards must equal the unsharded
+                  statistics exactly. Then `ShardedLexicalSession` on a (4,)
+                  mesh over serve-lexical-8M's corpus (``ql_lm``), unpacked
+                  and packed, beside `LexicalSession` on the same corpus: 4
+                  waves of 256 queries through `RetrievalService`, every row
+                  byte-identical, block p50 / p99 side by side, resident
+                  bytes (and the device memory each session holds) equal
+                  within 1 MB.
+10. ``lm``        LM serving of gemma2-2b at its full width and depth (26
                   layers, bfloat16, seeded random weights, 6.4 GB) through
                   `make_prefill_step` and `make_serve_step`: 4 prompts of
                   8,192 tokens from `make_lm_batch` (twice the sliding
@@ -143,6 +161,30 @@ code (nothing is caught and passed over):
                   prefill and 8 decode steps gives the device busy and
                   idle time, the top kernels and each flash kernel's
                   device time.
+11. ``lm_moe``    MoE serving of qwen3-moe-30b-a3b at full width (48
+                  layers, d_model 2,048, 32 / 4 heads of 64, 128 experts
+                  top-8, d_ff 768, vocab 151,936, bfloat16, seeded weights
+                  on the card) on a 1x1 mesh of the card, its experts on the
+                  ``fsdp_experts`` path. First the flash kernels at this
+                  geometry (head_dim 64, 8 query heads a KV head) against
+                  their plain versions, timed beside SDPA. Then the memory
+                  plan (weights, caches, dispatch buffers against the free
+                  memory; the depth is cut, and the cut printed, only if
+                  they do not fit). Prefill of 4 prompts of 2,048 tokens
+                  (``tokens_per_shard`` 8,192: capacity 640 an expert; the
+                  share of routed pairs capacity drops, from an untimed
+                  prefill), a 2,176-slot cache, 64 timed greedy steps with
+                  ``t`` on the card (``tokens_per_shard`` 4: capacity 8);
+                  48 attention launches in the prefill and 48 x 64 in
+                  decode; decode p50 / p99 beside the weight-byte bound of a
+                  step; the device idle share and each flash kernel's share
+                  (`torch.profiler`); peak memory. Then the card against
+                  the CPU at full width and 2 layers, 2 prompts of 256
+                  tokens, from the same weights: logits within ``LM_TOL``,
+                  greedy tokens of 8 steps equal except at a named logit
+                  near-tie, and every layer's router choices equal except
+                  where the experts that differ lie within
+                  ``ROUTER_MARGIN`` of the k-th (counted and printed).
 
 Each phase's wall time follows it (``phase_time``). The last three lines
 are the card's ``nvidia-smi`` name and power limit, a
@@ -164,7 +206,8 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
-PHASES = ("env", "build", "kernels", "experiment", "paper", "tune", "resume", "serve", "lm")
+PHASES = ("env", "build", "kernels", "experiment", "paper", "tune", "resume", "serve", "mesh",
+          "lm", "lm_moe")
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet) and the INT32
 # compare/add rate of the CUDA cores, 64 results per clock per SM for compute
@@ -1952,6 +1995,206 @@ def phase_serve(ctx) -> None:
          nvidia_smi=ctx["smi"])
 
 
+# phase mesh: search_mesh over mirex-8M's collection on meshes of cuda:0
+# repeated (one CUDA stream a shard), then the sharded session over the
+# serve-lexical-8M corpus
+MESH_SHAPES = (((1,), ("data",)), ((4,), ("data",)), ((2, 2), ("data", "model")))
+MESH_WAVES, MESH_WAVE_QUERIES = 4, 256
+
+
+def _card_mesh(shape, names, dev="cuda"):
+    """A mesh whose every entry is the one card: the shards share it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import Mesh
+
+    arr = np.empty(shape, dtype=object)
+    arr.fill(torch.device(dev, 0) if dev == "cuda" else torch.device(dev))
+    return Mesh(arr, names)
+
+
+def _same_state(name, got, want) -> None:
+    for g, w, what in ((got.scores, want.scores, "scores"), (got.ids, want.ids, "ids")):
+        if g.cpu().numpy().tobytes() != w.cpu().numpy().tobytes():
+            raise AssertionError(f"{name}: merged {what} differ from the one-shard job's")
+
+
+def _waves(service, kind, waves) -> tuple[dict, float]:
+    """Every wave through the service; answers keyed (wave, row), wall s."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    answers = {}
+    for b, wave in enumerate(waves):
+        rids = [service.submit(q, kind) for q in wave]
+        results = service.poll()
+        results.update(service.drain())
+        _answered_once(results, rids)
+        answers.update({(b, j): results[r] for j, r in enumerate(rids)})
+    return answers, time.monotonic() - t0
+
+
+def _mesh_sessions(coll, k, chunk, scorer, pack, waves, dev="cuda") -> dict:
+    """`LexicalSession` and `ShardedLexicalSession` on a (4,) mesh of the
+    card, the same corpus resident (packed or not), the same waves through
+    `RetrievalService`: every row byte-identical, one launch a dispatch
+    (sharded: one a shard), resident bytes equal within 1 MB."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Metrics
+    from repro_torch.serve import LexicalSession, RetrievalService, ShardedLexicalSession
+
+    out = {}
+    for label in ("single", "sharded"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        if label == "single":
+            session = LexicalSession(coll.corpus.tokens, coll.corpus.lengths, scorer, k=k,
+                                     chunk_size=chunk, stats=coll.stats, token_pack=pack,
+                                     device=dev)
+            shards = 1
+        else:
+            mesh = _card_mesh((4,), ("data",), dev)
+            session = ShardedLexicalSession(mesh, coll.corpus.tokens, coll.corpus.lengths,
+                                            scorer, k=k, chunk_size=chunk, stats=coll.stats,
+                                            token_pack=pack)
+            if any(d.type != torch.device(dev).type for d in session._scan.devices):
+                raise AssertionError("a shard of the sharded session is not on the card")
+            shards = session.plan.n_shards
+        held = torch.cuda.memory_allocated() - base
+        service = RetrievalService({"lexical": session}, max_batch=MESH_WAVE_QUERIES,
+                                   registry=Metrics())
+        ops.reset_launches()
+        answers, wall_s = _waves(service, "lexical", waves)
+        launches = dict(ops.LAUNCHES)
+        if launches["lexical_scan_topk"] != shards * len(service.metrics) or launches["score_topk"]:
+            raise AssertionError(f"{label}: {launches} launches for {len(service.metrics)} "
+                                 f"dispatches over {shards} shards")
+        line = _serve_line(service, "lexical", wall_s, {"curve": []})
+        out[label] = {"answers": answers, "resident_bytes": session.resident_corpus_bytes,
+                      "device_bytes_held": held, "pack_mode": session.pack_mode,
+                      "shards": shards, "launches": launches,
+                      **{key: line[key] for key in ("dispatches", "queries", "block_latency_ms",
+                                                    "us_per_query", "qps", "wall_s")}}
+        del session, service
+    single, sharded = out["single"], out["sharded"]
+    for key, want in single.pop("answers").items():
+        got = sharded["answers"][key]
+        if not (np.array_equal(got.ids, want.ids)
+                and np.array_equal(got.scores.view(np.int32), want.scores.view(np.int32))):
+            raise AssertionError(f"sharded session ({pack}): wave {key[0]} row {key[1]} differs")
+    del sharded["answers"]
+    for key in ("resident_bytes", "device_bytes_held"):
+        if abs(sharded[key] - single[key]) > 1 << 20:
+            raise AssertionError(f"sharded session ({pack}): {key} {sharded[key]} against "
+                                 f"{single[key]}")
+    if sharded["pack_mode"] != single["pack_mode"]:
+        raise AssertionError(f"pack modes {sharded['pack_mode']} / {single['pack_mode']}")
+    return {"token_pack": pack, "rows_byte_identical": True, "single": single,
+            "sharded": sharded}
+
+
+def phase_mesh(ctx, dev="cuda", spec=None) -> None:
+    import torch
+
+    from repro_torch import cluster
+    from repro_torch.core import anchors
+    from repro_torch.core.scoring import CollectionStats
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    spec = spec or _mirex_spec()
+    coll = _mirex_collection(ctx)
+    n, k, chunk = spec.n_docs, spec.k, spec.chunk_size
+    scorers = spec.scorers()
+    docs = (torch.as_tensor(coll.corpus.tokens, device=dev),
+            torch.as_tensor(coll.corpus.lengths, device=dev))
+    queries = torch.as_tensor(coll.queries, device=dev)
+    stats = CollectionStats(*(t.to(dev) for t in coll.stats))
+
+    # the one-shard scan job in this call (pipelined, checkpointed, one device)
+    out = os.path.join(OUT, "mesh-job")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    job = cluster.run_sharded_scan_job(
+        queries, docs, scorers, k=k, chunk_size=chunk, segment_chunks=spec.segment_chunks,
+        stats=stats, ckpt_dir=out, devices=[dev], pipelined=True)
+    torch.cuda.synchronize()
+    job_s = time.monotonic() - t0
+    want = job.state
+
+    base = torch.cuda.memory_allocated()
+    meshes, launches = [], {}
+    for shape, names in MESH_SHAPES:
+        mesh = _card_mesh(shape, names, dev)
+        fn = cluster.search_mesh(mesh, queries, docs, scorers, k=k, chunk_size=chunk,
+                                 stats=stats)
+        if any(d.type != torch.device(dev).type for d in fn.devices):
+            raise AssertionError(f"mesh {shape}: a shard is not on the card")
+        _same_state(f"mesh {shape}, first call", fn(queries, docs, stats), want)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t1 = time.monotonic()
+        got = fn(queries, docs, stats)
+        torch.cuda.synchronize()
+        call_s = time.monotonic() - t1
+        launched = dict(ops.LAUNCHES)
+        if launched["lexical_scan_topk"] != len(fn.devices) or launched["score_topk"]:
+            raise AssertionError(f"mesh {shape}: {launched} launches for {len(fn.devices)} shards")
+        _same_state(f"mesh {shape}", got, want)
+        launches[str(shape)] = launched["lexical_scan_topk"]
+        meshes.append({"shape": list(shape), "axes": list(names), "shards": len(fn.devices),
+                       "streams": sum(s is not None for s in fn.streams),
+                       "per_shard_docs": fn.per_shard, "call_s": call_s, "docs_per_s": n / call_s,
+                       "launches": launched["lexical_scan_topk"], "state_identical": True,
+                       "peak_above_base": torch.cuda.max_memory_allocated() - base})
+        del got
+
+    # no host sync inside a call (the 2x2 mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(queries, docs, stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same_state("mesh (2, 2) under sync debug mode", got, want)
+    del got, fn
+
+    # the statistics job over 4 shards of the card: the unsharded counts exactly
+    t1 = time.monotonic()
+    sharded_stats = anchors.collection_stats(*docs, spec.vocab, chunk_size=chunk,
+                                             mesh=_card_mesh((4,), ("data",), dev))
+    torch.cuda.synchronize()
+    stats_s = time.monotonic() - t1
+    for name, a, b in zip(CollectionStats._fields, sharded_stats, stats):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"sharded collection_stats: {name} differs")
+    ctx.setdefault("paths", {})["mesh"] = {"lexical_scan_topk": launches}
+    emit("mesh", experiment=spec.name, n_docs=n, n_queries=spec.n_queries, k=k,
+         models=[s.name for s in scorers], chunk_size=chunk, job_s=job_s,
+         job_docs_per_s=n / job_s, job_segments=job.segments_run, meshes=meshes,
+         sync_debug_mode="error", host_syncs=0, stats_shards=4, stats_s=stats_s,
+         stats_identical=True, device="cuda:0 in every mesh entry, one CUDA stream a shard",
+         nvidia_smi=ctx["smi"])
+    del docs, queries, job, want
+    torch.cuda.empty_cache()
+
+    # the sharded session over serve-lexical-8M's corpus, unpacked and packed
+    waves = [synthetic.make_queries(coll.corpus, n_queries=MESH_WAVE_QUERIES, seed=10 + b)
+             for b in range(MESH_WAVES)]
+    for pack in ("none", "auto"):
+        line = _mesh_sessions(coll, k, chunk, "ql_lm", pack, waves, dev)
+        emit("mesh.sharded_session", n_docs=n, mesh=[4], axes=["data"], scorer="ql_lm",
+             waves=MESH_WAVES, wave_queries=MESH_WAVE_QUERIES, **line, nvidia_smi=ctx["smi"])
+    torch.cuda.empty_cache()
+
+
 def _record_calls(fn, outs: list):
     """``fn`` wrapped to keep a float32 CPU copy of every result."""
 
@@ -2057,7 +2300,7 @@ def _on_card_and_cpu_agree(cfg_full, params) -> dict:
             "cpu_prefill_s": cpu["prefill_s"]}
 
 
-def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
+def _profile_lm(params, tokens, prefill, cache, step, tok, t) -> dict:
     """Where the device time goes: `torch.profiler` over one prefill and
     over 8 decode steps (after the timed runs; the decode steps write
     positions past the timed ones, from ``t``, a device int32 advanced in
@@ -2065,8 +2308,6 @@ def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
     device's busy seconds (one stream, so its activities do not overlap),
     the idle share and the top activities by device time."""
     import torch
-
-    from repro_torch.models import transformer as tfm
 
     def window(fn):
         prof = _device_profile(fn)
@@ -2077,7 +2318,7 @@ def _profile_lm(params, tokens, cfg, cache, step, tok, t) -> dict:
                             (("flash_attention", "flash_attn"), ("flash_decode", "flash_decode"))},
                 "top": [{"kernel": k[:120], "s": d, "calls": c} for k, d, c in rows[:12]]}
 
-    out = {"prefill": window(lambda: tfm.make_prefill_step(cfg)(params, tokens))}
+    out = {"prefill": window(lambda: prefill(params, tokens))}
 
     def decode():
         nonlocal tok
@@ -2201,7 +2442,7 @@ def phase_lm(ctx) -> None:
     emit("lm.device_t", **device_t, nvidia_smi=ctx["smi"])
     # each flash kernel's device time from the profiler (one prefill, 8
     # decode steps), over the timed runs' wall time
-    profile = _profile_lm(params, tokens, cfg, full, step, tok,
+    profile = _profile_lm(params, tokens, prefill, full, step, tok,
                           torch.tensor(prompt + n_decode + 8, dtype=torch.int32, device="cuda"))
     attn_s = profile["prefill"]["flash_s"]["flash_attention"]
     decode_step_s = profile["decode_8_steps"]["flash_s"]["flash_decode"] / 8
@@ -2225,6 +2466,401 @@ def phase_lm(ctx) -> None:
     torch.cuda.empty_cache()
     check = _on_card_and_cpu_agree(cfg, params)
     emit("lm.card_vs_cpu", **check, nvidia_smi=ctx["smi"])
+
+
+# phase lm_moe: qwen3-moe-30b-a3b at full width and depth on a 1x1 mesh of
+# the card: 4 prompts of 2,048 tokens into a 2,176-slot cache (a multiple of
+# decode_block_s 128 past the prompt), then 64 greedy steps; the card-vs-CPU
+# check on 2 prompts of 256 tokens at 2 layers
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_BATCH, MOE_PROMPT, MOE_SLOTS, MOE_DECODE, MOE_CHECK_PROMPT = 4, 2048, 2176, 64, 256
+# card against CPU: a token's experts may differ only where the CPU's
+# probabilities of the experts that differ lie within this many nats of its
+# k-th: the float32 router logits come from bfloat16 activations that the
+# two devices round at other places (about 2^-8 relative a rounding, a few
+# 1e-3 on a logit of O(1) after two layers), so a flip needs a near-tie
+ROUTER_MARGIN = 0.05
+
+
+def _moe_flash_geometry(ctx, dev="cuda") -> None:
+    """The flash kernels at the MoE model's geometry (head_dim 64, 8 query
+    heads a KV head, no cap, no window) against their plain versions, timed
+    beside SDPA, before the weights take the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn, flash_decode
+
+    bf16 = torch.bfloat16
+    cfg = get_config(MOE_ARCH)
+    b, s, h, kv, hd = MOE_BATCH, MOE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _rows(60, (b, s, h, hd), bf16)
+    k, v = _rows(61, (b, s, kv, hd), bf16), _rows(62, (b, s, kv, hd), bf16)
+    kern = lambda: flash_attn.flash_attention_cuda(q, k, v, causal=True, window=None, cap=None,
+                                                   block_q=128, block_k=128)
+    close = _flash_close("attn qwen3-moe", kern(), flash_attn.flash_attention_ref(
+        q, k, v, window=None, cap=None), bf16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    torch.testing.assert_close(lib().transpose(1, 2).float(), kern().float(), rtol=3e-2,
+                               atol=3e-2, msg="sdpa qwen3-moe")
+    flops = 4 * b * h * hd * _window_pairs(s, None)
+    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    attn = {"ms": cuda_ms(kern, reps=20, warmup=2),
+            "plain_ms": cuda_ms(lambda: flash_attn.flash_attention_ref(q, k, v, window=None,
+                                                                        cap=None), reps=2),
+            "library_ms": cuda_ms(lib, reps=20, warmup=2),
+            "bound_ms": 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S),
+            "bound_by": "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S
+            else "bytes", **close, "route": flash_attn.route(bf16, hd),
+            "shape": f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, causal, no cap, no window"}
+    del q, k, v, qt, kt, vt
+    t = MOE_PROMPT + MOE_DECODE - 1
+    q = _rows(63, (b, h, hd), bf16)
+    kc, vc = _rows(64, (b, MOE_SLOTS, kv, hd), bf16), _rows(65, (b, MOE_SLOTS, kv, hd), bf16)
+    t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+    kern = lambda: flash_decode.flash_decode_cuda(q, kc, vc, t_dev, window=None, cap=None,
+                                                  block_s=512)
+    close = _flash_close("decode qwen3-moe", kern(), flash_decode.flash_decode_ref(
+        q, kc, vc, t, window=None, cap=None), bf16)
+    kt, vt = kc[:, : t + 1].transpose(1, 2), vc[:, : t + 1].transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt, enable_gqa=True)
+    torch.testing.assert_close(lib()[:, :, 0].float(), kern().float(), rtol=3e-2, atol=3e-2,
+                               msg="sdpa decode qwen3-moe")
+    dec_bytes = 2 * (2 * q.numel() + 2 * b * (t + 1) * kv * hd)
+    flops = 4 * b * h * hd * (t + 1)
+    dec = {"ms": graph_ms(kern, 50),
+           "plain_ms": cuda_ms(lambda: flash_decode.flash_decode_ref(q, kc, vc, t, window=None,
+                                                                      cap=None), reps=10),
+           "library_ms": graph_ms(lib, 50),
+           "bound_ms": 1e3 * max(flops / BF16_OPS_PER_S, dec_bytes / HBM_BYTES_PER_S),
+           "bound_by": "operations" if flops / BF16_OPS_PER_S >= dec_bytes / HBM_BYTES_PER_S
+           else "bytes", **close,
+           "shape": f"B {b}, {MOE_SLOTS} slots, t {t} (a device int32), H {h}, KV {kv}, "
+           f"hd {hd}, bf16, no cap, no window"}
+    del q, kc, vc, kt, vt
+    torch.cuda.empty_cache()
+    for name, line in (("flash_attention", attn), ("flash_decode", dec)):
+        if name in ctx["kernels"]:  # the kernels phase ran
+            ctx["kernels"][name]["moe_geometry"] = {key: line[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    emit("lm_moe.flash", arch=MOE_ARCH, flash_attention=attn, flash_decode=dec,
+         timing_note="decode ms and library_ms from CUDA graphs of 50 calls; the plain "
+         "versions are not yardsticks; SDPA is timed as a yardstick, never used by the port",
+         nvidia_smi=ctx["smi"])
+
+
+def _moe_memory(cfg, free: int) -> dict:
+    """Weights, caches and the prefill's dispatch buffers against the free
+    device memory; the depth that fits (the config's, unless it is cut)."""
+    from repro_torch.models import moe
+
+    d, f, e, v = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.vocab
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    layer = 2 * (d * h * hd + 2 * d * kv * hd + h * hd * d + d * e + 3 * e * d * f + 2 * d)
+    fixed = 2 * (2 * v * d + d)
+    cache = 2 * 2 * MOE_BATCH * (MOE_SLOTS + MOE_PROMPT) * kv * hd  # a layer: full + prefill's
+    tokens = MOE_BATCH * MOE_PROMPT
+    cap = moe.capacity_for(tokens, cfg.top_k, e, cfg.capacity_factor)
+    # h and y [E, C, D], g, u and act(g) u [E, C, F] in bfloat16; the
+    # residual, norms, q/k/v/o and the combine's terms [T, D]; a layer's
+    # float32 draw at init (one expert stack)
+    dispatch = 2 * e * cap * (2 * d + 3 * f) + 16 * 2 * tokens * d + 4 * e * d * f
+    margin = 2 << 30
+    layers = cfg.n_layers
+    while layers > 1 and fixed + layers * (layer + cache) + dispatch + margin > free:
+        layers -= 1
+    return {"free_bytes": free, "weight_bytes": fixed + cfg.n_layers * layer,
+            "cache_bytes": cfg.n_layers * 2 * 2 * MOE_BATCH * MOE_SLOTS * kv * hd,
+            "dispatch_bytes": dispatch, "margin_bytes": margin, "capacity_prefill": cap,
+            "needed_bytes": fixed + cfg.n_layers * (layer + cache) + dispatch + margin,
+            "layers": layers, "depth_cut": layers != cfg.n_layers}
+
+
+def _counting_dispatch(kept: list):
+    """`moe._dispatch` wrapped to keep each call's kept-assignment count (a
+    device tensor: no host sync)."""
+    from repro_torch.models import moe
+
+    real = moe._dispatch
+
+    def counted(*args, **kwargs):
+        h, slot, keep = real(*args, **kwargs)
+        kept.append(keep.sum())
+        return h, slot, keep
+
+    return real, counted
+
+
+def _moe_contexts(cfg, dev, prefill_tokens: int, decode_tokens: int):
+    """Prefill (``seq``) and decode (``train``) contexts on a 1x1 mesh of
+    ``dev``, capacity from the tokens each step routes, as the reference's
+    smoke tests and CLI build them."""
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.models import transformer as tfm
+
+    mesh = _card_mesh((1, 1), ("data", "model"), dev)
+    rules = rules_for_mesh(mesh)
+    return (tfm.make_context(cfg, mesh, rules, tokens_per_shard=prefill_tokens, moe_mode="seq"),
+            tfm.make_context(cfg, mesh, rules, tokens_per_shard=decode_tokens))
+
+
+def _moe_run(cfg, params, tokens, dev, feed=None) -> dict:
+    """Prefill, then 8 greedy decode steps, with every router call's
+    probabilities and choices recorded; the decode steps take ``feed``'s
+    tokens when given, else their own argmax."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    b, p = tokens.shape
+    routes = []
+    real = moe.router_topk
+
+    def recording(logits, k):
+        probs, w, ids = real(logits, k)
+        routes.append((probs.float().cpu(), ids.cpu()))
+        return probs, w, ids
+
+    ctx_p, ctx_d = _moe_contexts(cfg, dev, b * p, b)
+    moe.router_topk = recording
+    try:
+        logits, cache = tfm.make_prefill_step(ctx_p)(params, tokens.to(dev))
+        full = tfm.init_cache(cfg, b, p + 8, device=dev)
+        full["k"][:, :, :p], full["v"][:, :, :p] = cache["k"], cache["v"]
+        del cache
+        step = tfm.make_serve_step(ctx_d, batch=b)
+        out, fed = [logits.cpu()], []
+        for i in range(8):
+            fed.append(feed[i] if feed is not None else out[-1].argmax(dim=-1))
+            logits, full = step(params, full, fed[-1].to(dev), p + i)
+            out.append(logits.cpu())
+    finally:
+        moe.router_topk = real
+    return {"logits": out, "fed": fed, "routes": routes}
+
+
+def _route_flips(cpu_routes, card_routes, n_layers: int) -> list:
+    """Each router call's tokens whose experts differ between the card and
+    the CPU; a flip is allowed only where the CPU's log-probabilities of the
+    experts that differ lie within ROUTER_MARGIN of its k-th."""
+    import torch
+
+    flips = []
+    for i, ((pc, ic), (_, ig)) in enumerate(zip(cpu_routes, card_routes)):
+        where = "prefill" if i < n_layers else f"decode step {(i - n_layers) // n_layers}"
+        differ = (ic.sort(-1).values != ig.sort(-1).values).any(-1).nonzero().flatten()
+        worst = 0.0
+        for tok in differ.tolist():
+            experts = sorted(set(ic[tok].tolist()) ^ set(ig[tok].tolist()))
+            kth = torch.log(pc[tok, ic[tok, -1]])
+            gap = float((torch.log(pc[tok, experts]) - kth).abs().max())
+            if gap > ROUTER_MARGIN:
+                raise AssertionError(f"{where}, layer {i % n_layers}, token {tok}: experts "
+                                     f"{experts} differ {gap} nats from the k-th (> "
+                                     f"{ROUTER_MARGIN})")
+            worst = max(worst, gap)
+        flips.append({"call": where, "layer": i % n_layers, "tokens": int(ic.shape[0]),
+                      "flipped_tokens": int(differ.numel()), "max_gap_nats": worst})
+    return flips
+
+
+def _moe_card_vs_cpu(cfg_full, params, dev="cuda") -> dict:
+    """Full width, 2 layers, bfloat16: the MoE entry points on the card and
+    on the CPU from the same weights, 2 prompts of 256 tokens, then 8 greedy
+    decode steps (all fed the CPU's tokens): logits within LM_TOL, greedy
+    tokens equal except at a named logit near-tie, router choices equal
+    except at near-ties of the k-th expert (counted)."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    two = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "unembed": params["unembed"],
+           "layers": {n: w[:2] for n, w in params["layers"].items()}}
+    on_cpu = {"embed": two["embed"].cpu(), "final_norm": two["final_norm"].cpu(),
+              "unembed": two["unembed"].cpu(),
+              "layers": {n: w.cpu() for n, w in two["layers"].items()}}
+    tokens = torch.as_tensor(synthetic.make_lm_batch(batch=2, seq_len=MOE_CHECK_PROMPT,
+                                                     vocab=cfg.vocab, seed=1)["tokens"])
+    t0 = time.monotonic()
+    cpu = _moe_run(cfg, on_cpu, tokens, "cpu")
+    cpu_s = time.monotonic() - t0
+    before = dict(ops.LAUNCHES)
+    card = _moe_run(cfg, two, tokens, dev, feed=cpu["fed"])
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    if launched["flash_attention"] != cfg.n_layers or launched["flash_decode"] != 8 * cfg.n_layers:
+        raise AssertionError(f"{launched} launches in a prefill and 8 decode steps of "
+                             f"{cfg.n_layers} layers")
+    flips = _route_flips(cpu["routes"], card["routes"], cfg.n_layers)
+    ties, errs = [], []
+    for i, (got, want) in enumerate(zip(card["logits"], cpu["logits"])):
+        errs.append(float((got - want).abs().max()))
+        if not torch.isfinite(got).all() or errs[-1] > LM_TOL:
+            raise AssertionError(f"card vs CPU logits at step {i} differ by {errs[-1]} "
+                                 f"(> {LM_TOL}); routing flips {flips}")
+        for row in range(2):
+            w, g = int(want[row].argmax()), int(got[row].argmax())
+            if w != g:
+                margin = float(want[row, w] - want[row, g])
+                if margin > LM_TOL:
+                    raise AssertionError(f"step {i} row {row}: card token {g}, CPU token "
+                                         f"{w}, CPU margin {margin} (> {LM_TOL})")
+                ties.append({"step": i, "row": row, "card": g, "cpu": w, "cpu_margin": margin})
+    return {"layers": cfg.n_layers, "prompts": [2, MOE_CHECK_PROMPT], "decode_steps": 8,
+            "tol": LM_TOL, "router_margin_nats": ROUTER_MARGIN,
+            "prefill_max_abs_diff": errs[0], "decode_max_abs_diff": errs[1:],
+            "logit_scale": float(cpu["logits"][0].abs().max()),
+            "greedy_tokens_equal": not ties, "near_ties": ties,
+            "router_calls": len(flips),
+            "routing_flips": sum(f["flipped_tokens"] for f in flips),
+            "routed_tokens": sum(f["tokens"] for f in flips),
+            "flips_by_call": [f for f in flips if f["flipped_tokens"]],
+            "cpu_s": cpu_s}
+
+
+def phase_lm_moe(ctx, dev="cuda", cfg=None) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_decode, ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    ctx.pop("collection", None)  # the earlier phases' corpora go first
+    torch.cuda.empty_cache()
+    _moe_flash_geometry(ctx, dev)
+    full_cfg = cfg or get_config(MOE_ARCH)
+    free, _ = torch.cuda.mem_get_info(dev)
+    plan = _moe_memory(full_cfg, free)
+    if plan["depth_cut"]:
+        print(f"lm_moe: depth cut from {full_cfg.n_layers} to {plan['layers']} layers to fit "
+              f"{free} B of free device memory", flush=True)
+    cfg = dataclasses.replace(full_cfg, n_layers=plan["layers"])
+    emit("lm_moe.memory", arch=cfg.name, **plan, nvidia_smi=ctx["smi"])
+    torch.cuda.reset_peak_memory_stats()
+    b, p, slots, n_decode = MOE_BATCH, MOE_PROMPT, MOE_SLOTS, MOE_DECODE
+    t0 = time.monotonic()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [params["embed"], params["final_norm"], params["unembed"],
+                        *params["layers"].values()])
+    expert_bytes = sum(params["layers"][n].numel() * 2 for n in ("w_gate", "w_up", "w_down"))
+    tokens = torch.as_tensor(synthetic.make_lm_batch(batch=b, seq_len=p, vocab=cfg.vocab,
+                                                     seed=0)["tokens"], device=dev)
+    ctx_p, ctx_d = _moe_contexts(cfg, dev, b * p, b)
+    prefill = tfm.make_prefill_step(ctx_p)
+    # one untimed prefill first (module loads, cuBLAS's first calls), which
+    # also counts the assignments capacity keeps
+    kept = []
+    real, moe._dispatch = _counting_dispatch(kept)
+    try:
+        prefill(params, tokens)
+    finally:
+        moe._dispatch = real
+    routed = cfg.n_layers * b * p * cfg.top_k
+    dropped_share = 1.0 - float(torch.stack(kept).sum()) / routed
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    prefill_launches = dict(ops.LAUNCHES)
+    if prefill_launches["flash_attention"] != cfg.n_layers or prefill_launches["flash_decode"]:
+        raise AssertionError(f"prefill launched {prefill_launches} for {cfg.n_layers} layers")
+    finite = bool(torch.isfinite(logits).all())
+    full = tfm.init_cache(cfg, b, slots, device=dev)
+    full["k"][:, :, :p], full["v"][:, :, :p] = cache["k"], cache["v"]
+    del cache
+    torch.cuda.empty_cache()
+    step = tfm.make_serve_step(ctx_d, batch=b)
+    tok = torch.argmax(logits, dim=-1)
+    t = torch.tensor(p, dtype=torch.int32, device=dev)
+    step(params, full, tok, t)  # untimed: the timed first step rewrites position t
+    step_s, seq0 = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for _ in range(n_decode):
+        t1 = time.monotonic()
+        logits, full = step(params, full, tok, t)
+        tok = torch.argmax(logits, dim=-1)
+        t.add_(1)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        finite &= bool(torch.isfinite(logits).all())
+        seq0.append(int(tok[0]))
+    decode_launches = dict(ops.LAUNCHES)
+    if decode_launches["flash_decode"] != cfg.n_layers * n_decode or \
+            decode_launches["flash_attention"]:
+        raise AssertionError(f"decode launched {decode_launches} for {n_decode} steps of "
+                             f"{cfg.n_layers} layers")
+    if not finite:
+        raise AssertionError("non-finite logits in prefill or decode")
+    if flash_decode.take_error(dev):
+        raise AssertionError("the decode kernel set its error word (a position outside the cache)")
+    peak = torch.cuda.max_memory_allocated()
+    ctx.setdefault("paths", {})["lm_moe"] = {
+        "flash_attention": prefill_launches["flash_attention"],
+        "flash_decode": decode_launches["flash_decode"]}
+    steps = np.array(step_s)
+    # the least a step could take: every weight but the embedding read once
+    # (a step's capacity dispatch runs every expert's products), the cache's
+    # positions read once
+    cache_read = 2 * 2 * b * (p + n_decode) * cfg.n_kv_heads * cfg.hd * cfg.n_layers
+    step_bytes = weight_bytes - params["embed"].numel() * 2 + cache_read
+    # a decode step's grouped products alone (one layer's three and the
+    # gate-up product, capacity 8, by CUDA events) times the depth: the part
+    # that reads every expert's weights
+    cap = moe.capacity_for(b, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    h = torch.randn((cfg.n_experts, cap, cfg.d_model), device=dev).to(
+        params["layers"]["w_gate"].dtype)
+    lp = {n: params["layers"][n][0] for n in ("w_gate", "w_up", "w_down")}
+    products_ms = cfg.n_layers * cuda_ms(lambda: torch.bmm(
+        torch.bmm(h, lp["w_gate"]) * torch.bmm(h, lp["w_up"]), lp["w_down"]), reps=20, warmup=2)
+    del h, lp
+    profile = _profile_lm(params, tokens, prefill, full, step, tok,
+                          torch.tensor(p + n_decode + 1, dtype=torch.int32, device=dev))
+    attn_s = profile["prefill"]["flash_s"]["flash_attention"]
+    decode_step_s = profile["decode_8_steps"]["flash_s"]["flash_decode"] / 8
+    emit("lm_moe", arch=cfg.name, layers=cfg.n_layers, depth_cut=plan["depth_cut"],
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+         experts=cfg.n_experts, top_k=cfg.top_k, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         dtype=cfg.dtype, fsdp_experts=tfm.uses_fsdp_experts(cfg), mesh=[1, 1],
+         weight_bytes=weight_bytes, expert_bytes=expert_bytes, init_s=init_s, batch=b,
+         prompt=p, cache_slots=slots,
+         cache_bytes=sum(x.numel() * x.element_size() for x in full.values()),
+         capacity_prefill=moe.capacity_for(b * p, cfg.top_k, cfg.n_experts, cfg.capacity_factor),
+         capacity_decode=moe.capacity_for(b, cfg.top_k, cfg.n_experts, cfg.capacity_factor),
+         prefill_dropped_share=dropped_share, prefill_routed_pairs=routed,
+         prefill_s=prefill_s, prefill_tokens_per_s=b * p / prefill_s,
+         prefill_launches=prefill_launches, flash_attention_device_s=attn_s,
+         flash_attention_share=attn_s / prefill_s,
+         decode_steps=n_decode, decode_launches=decode_launches,
+         decode_ms_p50=float(np.quantile(steps, 0.5)) * 1e3,
+         decode_ms_p99=float(np.quantile(steps, 0.99)) * 1e3,
+         decode_tokens_per_s=b * n_decode / float(steps.sum()),
+         expert_bytes_per_step=expert_bytes,
+         expert_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3,
+         step_bytes=step_bytes, step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         expert_products_ms_per_step=products_ms,
+         flash_decode_device_ms_per_step=decode_step_s * 1e3,
+         flash_decode_share=decode_step_s / float(steps.mean()),
+         seq0_tokens=seq0[:16], logits_finite=finite, max_memory_allocated=peak,
+         nvidia_smi=ctx["smi"])
+    emit("lm_moe.profile", **profile, nvidia_smi=ctx["smi"])
+    del full
+    torch.cuda.empty_cache()
+    check = _moe_card_vs_cpu(cfg, params, dev)
+    emit("lm_moe.card_vs_cpu", **check, nvidia_smi=ctx["smi"])
+    del params
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -2252,7 +2888,8 @@ def main(argv=None) -> int:
     ctx = {"kernels": {}, "launches": {}, "smi": gpu_name_and_power_limit()}
     table = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
              "experiment": phase_experiment, "paper": phase_paper, "tune": phase_tune,
-             "resume": phase_resume, "serve": phase_serve, "lm": phase_lm}
+             "resume": phase_resume, "serve": phase_serve, "mesh": phase_mesh, "lm": phase_lm,
+             "lm_moe": phase_lm_moe}
     for p in PHASES:
         if p in only:
             t0 = time.monotonic()
@@ -2260,6 +2897,9 @@ def main(argv=None) -> int:
             emit("phase_time", name=p, seconds=time.monotonic() - t0)
     for name, entry in ctx["kernels"].items():
         entry["launches"] = ctx["launches"].get(name, 0)
+        # each later path's own launches, counted from 0 around that path
+        entry["launches_by_path"] = {path: counts[name] for path, counts in
+                                     ctx.get("paths", {}).items() if name in counts}
     print(ctx["smi"])
     print(json.dumps({"kernels": list(ctx["kernels"].values())}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ equal slices covering ``[0, n_docs)`` exactly once; each shard's global
 ``doc_id_offset`` is its start row, so local top-k ids map to global ids by
 one sentinel-preserving add. Chunk alignment keeps every chunk's scores a
 function of its rows alone, so merged results are identical at any shard
-count. Plans cut from a device mesh wait for the mesh slice.
+count. :func:`plan_for_mesh` cuts one shard per device along a mesh's scan
+axes (`repro_torch.distributed.sharding`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 from typing import Any, Sequence
 
 from repro_torch.core.pipeline import tree_map
+from repro_torch.distributed.sharding import AxisRules, Mesh, rules_for_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +92,31 @@ def plan_shards(
     return ShardPlan(
         n_docs=n_docs, chunk_size=chunk_size, shards=shards, axis_names=tuple(axis_names)
     )
+
+
+def mesh_scan_axes(mesh: Mesh, rules: AxisRules | None = None) -> tuple[str, ...]:
+    """The physical axes behind the logical "scan" axis: all of them."""
+    rules = rules if rules is not None else rules_for_mesh(mesh)
+    return rules.scan_axes
+
+
+def plan_for_mesh(
+    mesh: Mesh,
+    n_docs: int,
+    *,
+    chunk_size: int,
+    rules: AxisRules | None = None,
+    axis_names: Sequence[str] | None = None,
+) -> ShardPlan:
+    """One shard per device along the scan axes of ``mesh``.
+
+    ``axis_names=None`` shards over the logical "scan" axis (every mesh axis
+    — the MIREX default); pass a subset to scan on a slice of the mesh, e.g.
+    ``("data",)`` to keep "model" free for tensor parallelism.
+    """
+    if axis_names is None:
+        axis_names = mesh_scan_axes(mesh, rules)
+    n_shards = 1
+    for a in axis_names:
+        n_shards *= mesh.shape[a]
+    return plan_shards(n_docs, n_shards=n_shards, chunk_size=chunk_size, axis_names=axis_names)

@@ -1,27 +1,36 @@
 """Architecture registry of the port: ``get_config`` and ``reduced_config``.
 
 The port holds the paper's own system, ``mirex`` (what `launch.serve`
-reads in search mode), and the dense LMs of `repro.configs`:
-``gemma2-2b``, ``gemma2-27b`` and ``h2o-danube-1.8b`` (LM serving). The MoE
-LMs wait for the MoE slice, the GNN and the recsys models for theirs;
-asking for one raises ``NotImplementedError``.
+reads in search mode), and the LMs of `repro.configs`: the dense
+``gemma2-2b``, ``gemma2-27b`` and ``h2o-danube-1.8b`` and the MoE
+``qwen3-moe-30b-a3b`` and ``dbrx-132b`` (LM serving). The GNN and the
+recsys models wait for their slices; asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.archs import gemma2_2b, gemma2_27b, h2o_danube_1_8b, mirex
+from repro_torch.configs.archs import (
+    dbrx_132b,
+    gemma2_2b,
+    gemma2_27b,
+    h2o_danube_1_8b,
+    mirex,
+    qwen3_moe_30b_a3b,
+)
 from repro_torch.configs.base import MirexConfig, TransformerConfig
 
 _MODULES = {
+    "dbrx-132b": dbrx_132b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "h2o-danube-1.8b": h2o_danube_1_8b,
     "gemma2-27b": gemma2_27b,
     "gemma2-2b": gemma2_2b,
     "mirex": mirex,
 }
 _LATER_SLICES = {
-    "dbrx-132b": "MoE", "qwen3-moe-30b-a3b": "MoE",
     "pna": "GNN",
     "dcn-v2": "recsys", "fm": "recsys", "mind": "recsys", "sasrec": "recsys",
 }

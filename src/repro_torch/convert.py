@@ -74,7 +74,9 @@ def _tree(tree, device):
 def params_from_numpy(params, device="cpu") -> dict:
     """The reference's LM parameter pytree (`repro.models.transformer.
     init_params`, leaves through ``np.asarray``) -> the port's dict of
-    tensors on ``device``, bfloat16 bit for bit."""
+    tensors on ``device``, bfloat16 bit for bit; a MoE config's four
+    expert leaves (``router``, ``w_gate``, ``w_up``, ``w_down``) come
+    across with the rest, in the reference's layouts."""
     return _tree(params, device)
 
 

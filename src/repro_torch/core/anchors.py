@@ -5,13 +5,18 @@ feed the LM and BM25 scorers (term/document frequencies), and (2)
 anchor-text extraction, which groups the link anchor strings pointing *at*
 each page into that page's searchable representation (§3.2). The
 statistics job's combiner state is additive, so it is a chunked fold
-(:func:`repro_torch.core.pipeline.fold_chunks`) over exact int32 counters;
+(:func:`repro_torch.core.pipeline.fold_chunks`) over exact int32 counters,
+and over a mesh each shard's counters are summed in shard order
+(:func:`repro_torch.core.pipeline.merge_across`, the reference's ``psum``);
 the anchor job is integer work on the device the links live on (a stable
 sort by destination, each link's rank within its group, one scatter).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.core import pipeline
@@ -35,14 +40,8 @@ def _chunk_stats(chunk_tokens: torch.Tensor, vocab: int):
     return cf, df, total
 
 
-def collection_stats(
-    d_tokens: torch.Tensor,
-    d_len: torch.Tensor,
-    vocab: int,
-    *,
-    chunk_size: int = 256,
-) -> CollectionStats:
-    """The statistics job: additive int32 counters over chunks of rows."""
+def _local_stats(d_tokens, d_len, vocab: int, chunk_size: int):
+    """One shard's ``(cf, df, total, n_docs)`` int32 counters."""
     dev = d_tokens.device
     state0 = (
         torch.zeros((vocab,), dtype=torch.int32, device=dev),
@@ -58,7 +57,48 @@ def collection_stats(
         n_docs = (lens > 0).sum(dtype=torch.int32)
         return (state[0] + cf, state[1] + df, state[2] + total, state[3] + n_docs)
 
-    cf, df, total, n_docs = pipeline.fold_chunks((d_tokens, d_len), chunk_size, fold, state0)
+    return pipeline.fold_chunks((d_tokens, d_len), chunk_size, fold, state0)
+
+
+def collection_stats(
+    d_tokens: torch.Tensor,
+    d_len: torch.Tensor,
+    vocab: int,
+    *,
+    chunk_size: int = 256,
+    mesh=None,
+    axis_name: str | tuple[str, ...] | None = None,
+) -> CollectionStats:
+    """The statistics job: additive int32 counters over chunks of rows.
+
+    With a ``mesh`` (`repro_torch.distributed.sharding.Mesh`) the rows are
+    cut into equal contiguous shards over ``axis_name`` (default: every
+    mesh axis), each shard counts its rows on its device, and the counters
+    are summed across the shards — the reference's ``axis_name`` path,
+    where each shard of a ``shard_map`` counts its own rows and ``psum``
+    merges them. Integer counts: the result equals the unsharded job's
+    exactly, on the mesh's first shard's device.
+    """
+    if mesh is None:
+        state = _local_stats(d_tokens, d_len, vocab, chunk_size)
+    else:
+        names = tuple(mesh.axis_names) if axis_name is None else (
+            (axis_name,) if isinstance(axis_name, str) else tuple(axis_name))
+        sizes = tuple(mesh.shape[a] for a in names)
+        n_shards = math.prod(sizes)
+        n = d_tokens.shape[0]
+        if n % n_shards:
+            raise ValueError(f"{n} docs not divisible into {n_shards} equal shards")
+        per = n // n_shards
+        parts = np.empty(n_shards, dtype=object)
+        for i in range(n_shards):
+            dev, _ = mesh.shard(i, names)
+            rows = slice(i * per, (i + 1) * per)
+            parts[i] = _local_stats(d_tokens[rows].to(dev), d_len[rows].to(dev), vocab,
+                                    chunk_size)
+        merged = pipeline.merge_across(parts.reshape(sizes), names, axes=names)
+        state = merged[(0,) * len(names)]
+    cf, df, total, n_docs = state
     avg = total.to(torch.float32) / torch.clamp(n_docs.to(torch.float32), min=1.0)
     return CollectionStats(cf=cf, df=df, total_terms=total, n_docs=n_docs, avg_doc_len=avg)
 

@@ -5,6 +5,7 @@ fold into an associative *combiner* state, merge states across machines —
 is the skeleton of the scan, the statistics job and the sharded job:
 
     state = fold_chunks(local_shard, chunk, fold_fn, init)   # map + combine
+    states = merge_across(states, axes, axes=mesh_axes)       # merge shards
 
 ``fold_chunks`` is a Python loop over chunks (PyTorch runs eagerly, so there
 is no compiled scan to build). Chunk folds are idempotent re-reduces: the
@@ -25,6 +26,7 @@ import queue as queue_mod
 import threading
 from typing import Any, Callable, Iterator, NamedTuple, Sequence, TypeVar
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -276,3 +278,58 @@ def fold_chunks(
         chunk = tree_map(lambda x, a=start: x[a : a + chunk_size], data)
         state = fold_fn(state, chunk, start)
     return state
+
+
+def _state_map(fn: Callable, *states):
+    """``fn`` over the matching tensors of combiner states (a tensor, or a
+    tuple — named or not — of states)."""
+    first = states[0]
+    if isinstance(first, tuple):
+        parts = [_state_map(fn, *xs) for xs in zip(*states)]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    return fn(*states)
+
+
+def merge_across(
+    states: np.ndarray,
+    axis_name: str | Sequence[str],
+    merge_fn: Callable[[S, S], S] | None = None,
+    *,
+    axes: Sequence[str],
+) -> np.ndarray:
+    """Reduce combiner states across mesh axes: the reference's
+    ``merge_across``, which runs inside ``shard_map``.
+
+    ``states`` is an object array with one state per shard, its dims named
+    by ``axes``; the shards of ``axis_name`` (one axis, or several
+    flattened in the order given, as a collective over a tuple of axes
+    flattens them) are gathered onto the first one's device. With
+    ``merge_fn=None`` the state is additive and the shards are summed in
+    shard order (the counterpart of ``psum``: collection statistics);
+    otherwise they are folded from the left with ``merge_fn``. Returns an
+    array of the same shape: what each shard holds afterwards, on its own
+    device.
+    """
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    axes = list(axes)
+    for a in names:
+        if a not in axes:
+            raise ValueError(f"axis {a!r} is not one of the states' axes {tuple(axes)}")
+    dims = [axes.index(a) for a in names]
+    keep = [d for d in range(states.ndim) if d not in dims]
+    moved = np.transpose(states, keep + dims)
+    lead = moved.shape[: len(keep)]
+    flat = moved.reshape(*lead, -1)
+    out = np.empty(flat.shape, dtype=object)
+    for idx in np.ndindex(lead):
+        fiber = list(flat[idx])
+        dev = leaves(fiber[0])[0].device
+        gathered = [_state_map(lambda x: x.to(dev), s) for s in fiber]
+        acc = gathered[0]
+        for s in gathered[1:]:
+            acc = _state_map(torch.add, acc, s) if merge_fn is None else merge_fn(acc, s)
+        for j, s in enumerate(fiber):
+            here = leaves(s)[0].device
+            out[idx + (j,)] = _state_map(lambda x: x.to(here), acc)
+    out = out.reshape(moved.shape)
+    return np.transpose(out, np.argsort(keep + dims))

@@ -26,7 +26,8 @@ decodes each tile, the plain version each block), with results equal to
 the unpacked corpus's bit for bit. A dense scorer on a packed corpus is
 refused.
 
-The mesh scan (``search_sharded``) waits for the mesh slice.
+The mesh scan is `repro_torch.cluster.search_mesh`; :func:`search_sharded`
+is its deprecated alias, as in the reference.
 """
 
 from __future__ import annotations
@@ -166,6 +167,50 @@ def search_local_multi(
     if init_state is not None:
         state = topk.merge(init_state, state)
     return state
+
+
+def search_sharded(
+    mesh,
+    axis_names: tuple[str, ...],
+    queries: Any,
+    docs: Any,
+    scorer: Scorer,
+    *,
+    k: int,
+    chunk_size: int,
+    stats: CollectionStats | None = None,
+    use_kernel: bool = False,
+    tree_merge: bool = False,
+):
+    """Deprecated alias for :func:`repro_torch.cluster.search_mesh`.
+
+    Keeps the old single-scorer return shape (``[n_q, k]``) by squeezing
+    the grid axis; ``tree_merge`` is ignored (the hierarchical
+    lexicographic reduce bounds the gather buffer at ``axis_size * k``
+    already).
+    """
+    import warnings
+
+    warnings.warn(
+        "scan.search_sharded is deprecated; use repro.cluster.search_mesh "
+        "(multi-model, kernel-dispatched, shared merge contract)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    del tree_merge
+    from repro_torch import cluster  # local import: scan is cluster's lower layer
+
+    fn = cluster.search_mesh(
+        mesh, queries, docs, scorer,
+        k=k, chunk_size=chunk_size, stats=stats,
+        axis_names=axis_names, use_kernel=use_kernel,
+    )
+
+    def squeezed(queries, docs, stats=None):
+        state = fn(queries, docs, stats)
+        return topk.TopKState(scores=state.scores[0], ids=state.ids[0])
+
+    return squeezed
 
 
 def search_dense_host(q_vecs: torch.Tensor, d_vecs: torch.Tensor, k: int) -> topk.TopKState:

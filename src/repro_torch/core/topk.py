@@ -5,6 +5,14 @@ score) pairs per query; the state is associative to merge, so it can be
 kept per chunk (streaming scan), per segment (checkpointed job) or per
 shard, and merged cheaply.
 
+The cross-shard merges (:func:`merge_across_lex`, :func:`merge_across`,
+:func:`merge_across_tree`) run inside ``shard_map`` in the reference, each
+shard holding its own state. Here there is no SPMD program: they take the
+shards' states as one object array indexed by mesh coordinates
+(:func:`state_array`), the names of its dims (``axes``) and the axes to
+reduce, and return an array of the same shape holding what each shard
+holds after the reference's collective, on that shard's device.
+
 Order: every state is sorted by (score desc, id asc). The reference gets
 that from ``lax.top_k``'s positional tie-break over a monotone-id candidate
 stream; torch's ``topk`` gives no such promise on ties (BM25 scores every
@@ -14,10 +22,12 @@ document without a query term exactly 0, so ties are everywhere), so
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import pipeline
 
 NEG_INF = float("-inf")
 
@@ -115,6 +125,89 @@ def reduce_lex(states) -> TopKState:
     out = states[0]
     for s in states[1:]:
         out = merge_lex(out, s)
+    return out
+
+
+def state_array(states: Sequence[TopKState], shape: tuple[int, ...] | None = None) -> np.ndarray:
+    """The states in mesh order (row-major) as an object array of ``shape``
+    (default 1-d). ``np.array`` would split each state into its two
+    tensors, so the array is filled one element at a time."""
+    states = list(states)
+    arr = np.empty(len(states), dtype=object)
+    for i, s in enumerate(states):
+        arr[i] = s
+    return arr.reshape(shape if shape is not None else (len(states),))
+
+
+def _to(state: TopKState, device) -> TopKState:
+    """The state on ``device`` (no copy when it is there already)."""
+    return TopKState(scores=state.scores.to(device), ids=state.ids.to(device))
+
+
+def merge_across_lex(states: np.ndarray, axis_name: str | Sequence[str], *,
+                     axes: Sequence[str]) -> np.ndarray:
+    """Global lexicographic reduce across mesh axes.
+
+    ``states`` holds one state per shard, its dims named by ``axes``. The
+    reference's hierarchical staging: one stage per axis of ``axis_name``,
+    in order, each gathering the axis's states and folding them with
+    :func:`merge_lex` in shard order (cutting back to ``k`` between
+    stages), so the mesh reduce and the host-loop reduce (:func:`reduce_lex`)
+    share one merge contract. Every shard of a reduced fiber holds the same
+    state.
+    """
+    for a in (axis_name,) if isinstance(axis_name, str) else axis_name:
+        states = pipeline.merge_across(states, a, merge_lex, axes=axes)
+    return states
+
+
+def merge_across(states: np.ndarray, axis_name: str | Sequence[str], *,
+                 axes: Sequence[str], method: str = "staged") -> np.ndarray:
+    """Global reduce: merge per-shard states across mesh axes, one stage per
+    axis (re-reducing to ``k`` between stages, so a stage's buffer is
+    ``axis_size * k`` a query).
+
+    ``method="staged"`` is the reference's top ``k`` of an axis's
+    ``[n_shards, k]`` lists flattened in shard order, the lower position
+    first on a tie (``lax.top_k``). That is the left fold of :func:`merge`
+    over the shards (a stable sort: ``torch.topk`` promises no order for
+    ties on CUDA): every truncation to ``k`` keeps the order of (score,
+    position). ``method="tree"`` is :func:`merge_across_tree`.
+    """
+    if method not in ("staged", "tree"):
+        raise ValueError(f"unknown merge method {method!r}")
+    for a in (axis_name,) if isinstance(axis_name, str) else axis_name:
+        if method == "tree":
+            states = merge_across_tree(states, a, axes=axes)
+        else:
+            states = pipeline.merge_across(states, a, merge, axes=axes)
+    return states
+
+
+def merge_across_tree(states: np.ndarray, axis_name: str, *,
+                      axes: Sequence[str]) -> np.ndarray:
+    """Log-depth butterfly merge along one axis (recursive halving, the
+    reference's ``ppermute`` rounds): in round ``step`` shard ``i`` merges
+    its partner ``i ^ step``'s state into its own with :func:`merge` (its
+    own entries first on a tie). The axis size must be a power of two. Every
+    shard ends with the global top ``k``; on tied scores shards may hold
+    them in another order, as in the reference."""
+    if axis_name not in axes:
+        raise ValueError(f"axis {axis_name!r} is not one of the states' axes {tuple(axes)}")
+    dim = list(axes).index(axis_name)
+    n = states.shape[dim]
+    if n & (n - 1):
+        raise ValueError(f"tree merge requires power-of-two axis size, got {n}")
+    out = np.empty(states.shape, dtype=object)
+    src, dst = np.moveaxis(states, dim, -1), np.moveaxis(out, dim, -1)
+    for idx in np.ndindex(src.shape[:-1]):
+        fiber, step = list(src[idx]), 1
+        while step < n:
+            fiber = [merge(fiber[i], _to(fiber[i ^ step], fiber[i].scores.device))
+                     for i in range(n)]
+            step <<= 1
+        for j, state in enumerate(fiber):
+            dst[idx + (j,)] = state
     return out
 
 

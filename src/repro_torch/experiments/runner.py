@@ -37,6 +37,7 @@ from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.eval import evaluate_run, paired_randomization_test, trec
 from repro_torch.experiments.grid import ExperimentSpec
+from repro_torch.launch.mesh import visible_devices
 from repro_torch.tune import TuningConfig
 
 
@@ -250,10 +251,11 @@ def _run_experiment_traced(
     # the tuned chunk replaces the spec's for the scan fold only
     chunk = cfg.scan_chunk(spec.chunk_size, n_docs=spec.n_docs, n_shards=spec.n_shards)
 
-    # shards run on the run's one device (one card: one worker unless
-    # max_workers asks for more)
+    # shards spread round-robin over every visible device of the run's
+    # device type, as the reference's over jax.devices() (one card: every
+    # shard on it, one worker unless max_workers asks for more)
     plan = plan_shards(spec.n_docs, n_shards=spec.n_shards, chunk_size=chunk)
-    devices = [device] if spec.n_shards > 1 else None
+    devices = visible_devices(device) if spec.n_shards > 1 else None
     with tr.span("experiment.scan", "experiment", n_shards=plan.n_shards, pipelined=pipelined):
         job = run_sharded_scan_job(
             torch.as_tensor(coll.queries, device=device),

@@ -17,10 +17,12 @@ is printed and a batch-size/latency sweep is written to ``BENCH_serve.json``
 ``mirex`` config, as the reference's driver does.
 
 Decode mode runs greedy LM decoding as the reference's ``serve_decode``
-does: the reduced config of ``--arch``, seeded random weights, batch 4, a
-cache of ``--tokens + 8`` slots, ``--tokens`` steps from position 0, each
-step's argmax fed back; every layer's attention goes through the split-KV
-decode kernel. It prints the reference's line.
+does: the reduced config of ``--arch`` (a dense LM, or the MoE
+``qwen3-moe-30b-a3b`` / ``dbrx-132b`` over a one-device mesh with
+``tokens_per_shard`` = the batch), seeded random weights, batch 4, a cache
+of ``--tokens + 8`` slots, ``--tokens`` steps from position 0, each step's
+argmax fed back; every layer's attention goes through the split-KV decode
+kernel. It prints the reference's line.
 
 Same flags as `repro.launch.serve` plus ``--device`` (default ``cuda``;
 without a card and without ``--device cpu`` it raises instead of running
@@ -38,6 +40,8 @@ from repro_torch.configs import reduced_config
 from repro_torch.core import anchors
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.obs import Metrics
 from repro_torch.serve import (
@@ -173,7 +177,10 @@ def serve_decode(n_tokens: int, arch: str = "gemma2-2b", batch: int = 4, device=
     dev = resolve_device(device)
     cfg = reduced_config(arch)
     params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    step = tfm.make_serve_step(cfg, batch=batch)
+    # the reference's CLI: a one-device mesh, MoE capacity from the batch
+    mesh = make_test_mesh(1, 1, device=dev)
+    ctx = tfm.make_context(cfg, mesh, rules_for_mesh(mesh), tokens_per_shard=batch)
+    step = tfm.make_serve_step(ctx, batch=batch)
     cache = tfm.init_cache(cfg, batch, n_tokens + 8, device=dev)
     tok = torch.ones((batch,), dtype=torch.int64, device=dev)
     # the position lives on the device and advances there, as the

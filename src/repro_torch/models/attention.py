@@ -7,8 +7,9 @@ The model's own attention runs through the kernels
 `ops.flash_decode` in decode); these are their references at the model's
 level and the pieces of the sequence-sharded decode.
 ``decode_attend_seqsharded`` (a ``shard_map`` over a mesh in the reference)
-waits for the mesh slice; :func:`lse_merge` takes the shards' partials as
-a list instead of mesh axes.
+waits for the sequence-sharded decode slice (`transformer.make_serve_step`
+refuses a cache sharded over its sequence); :func:`lse_merge` takes the
+shards' partials as a list instead of mesh axes.
 
 ``window_active`` is a Python bool here (the layers are a Python loop), or
 ``None`` for "the window applies".

@@ -19,6 +19,19 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, *, one_plus: bool = False, eps: f
     return (x * scale).to(dtype)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., D] @ w [D, N]`` with a float32 result: bfloat16 products
+    are exact in float32, so both paths accumulate the same products in
+    float32 (the reference's ``preferred_element_type=f32``)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*lead, w.shape[-1])
+
+
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x

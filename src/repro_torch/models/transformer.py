@@ -12,10 +12,9 @@ leaf stacked ``[L, ...]``; caches are ``{"k", "v"}`` of ``[L,B,S,KV,hd]``.
 What differs from the reference, and why:
 
 * the layers are a Python loop over the stacked weights (PyTorch runs
-  eagerly; there is no scan to compile) and nothing is sharded: the mesh,
-  sharding constraints and remat belong to the reference's multi-chip
-  training path, so the step builders take the config where the
-  reference's take a context holding it with the mesh;
+  eagerly; there is no scan to compile); the dense layers run on one
+  device (sharding constraints and remat belong to the reference's
+  multi-chip training path), and only the MoE layer runs over the mesh;
 * attention runs through the kernels: prefill calls
   `ops.flash_attention` with native GQA (no ``repeat``), the window passed
   only on a windowed layer, which is the reference's
@@ -28,33 +27,93 @@ What differs from the reference, and why:
   the reference's (`repro_torch.convert.params_from_numpy` carries the
   reference's own parameters across for the parity tests).
 
-MoE (``cfg.is_moe``) waits for the MoE slice and ``make_loss_fn`` for the
-training slice.
+* the serve step attends over a KV cache on one device: a cache whose
+  sequence axes span several shards (the reference's
+  ``decode_attend_seqsharded``) is refused, naming its slice.
+
+``make_loss_fn`` waits for the training slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed.sharding import AxisRules, Mesh
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
-    activation_fn, apply_rope, init_dense, rms_norm, rope_angles, softcap,
+    activation_fn, apply_rope, init_dense, matmul_f32, rms_norm, rope_angles, softcap,
 )
 from repro_torch.tune import config as tune_config
 
-_LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w_gate", "w_up", "w_down")
+FSDP_EXPERT_BYTES = 2**33  # >8 GiB of expert weights -> ZeRO-3 them over dp
+_MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
 def _dtype(cfg: TransformerConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers wait for the MoE slice of the port")
+def uses_fsdp_experts(cfg: TransformerConfig) -> bool:
+    if not cfg.is_moe:
+        return False
+    expert_bytes = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+    return expert_bytes > FSDP_EXPERT_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelContext:
+    """Everything the forward pass needs besides params and inputs. A dense
+    config runs with ``mesh``/``rules``/``moe_layer`` left ``None``."""
+
+    cfg: TransformerConfig
+    mesh: Mesh | None = None
+    rules: AxisRules | None = None
+    moe_layer: Any = None
+
+
+def make_context(
+    cfg: TransformerConfig,
+    mesh: Mesh,
+    rules: AxisRules,
+    *,
+    tokens_per_shard: int | None = None,
+    moe_mode: str = "train",
+) -> ModelContext:
+    """The reference's context: a MoE config with ``tokens_per_shard`` gets
+    its MoE layer over ``mesh`` (experts over ``rules.tp``, and over
+    ``rules.dp`` on ``d_ff`` when `uses_fsdp_experts`), its capacity from
+    ``tokens_per_shard``."""
+    moe_layer = None
+    if cfg.is_moe and tokens_per_shard is not None:
+        moe_layer = moe_lib.make_moe_layer(
+            mesh,
+            rules.dp,
+            rules.tp,
+            n_experts=cfg.n_experts,
+            top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+            tokens_per_shard=tokens_per_shard,
+            activation=cfg.activation,
+            fsdp_experts=uses_fsdp_experts(cfg),
+            mode=moe_mode,
+        )
+    return ModelContext(cfg=cfg, mesh=mesh, rules=rules, moe_layer=moe_layer)
+
+
+def _context(ctx: ModelContext | TransformerConfig) -> ModelContext:
+    """A context from a context, or from a dense config alone."""
+    if isinstance(ctx, TransformerConfig):
+        ctx = ModelContext(cfg=ctx)
+    if ctx.cfg.is_moe and ctx.moe_layer is None:
+        raise ValueError(f"{ctx.cfg.name} has MoE layers: build its context with "
+                         "make_context(cfg, mesh, rules, tokens_per_shard=...)")
+    return ctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +124,6 @@ class ParamSpec:
 
 def param_shapes(cfg: TransformerConfig) -> dict:
     """Shape/dtype tree of the parameters (`ParamSpec` leaves)."""
-    _dense_only(cfg)
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     l, f, v = cfg.n_layers, cfg.d_ff, cfg.vocab
     dt = _dtype(cfg)
@@ -80,10 +138,16 @@ def param_shapes(cfg: TransformerConfig) -> dict:
         "wv": s(l, d, kv * hd),
         "wo": s(l, h * hd, d),
         "ffn_norm": s(l, d),
-        "w_gate": s(l, d, f),
-        "w_up": s(l, d, f),
-        "w_down": s(l, f, d),
     }
+    if cfg.is_moe:
+        layers.update(
+            router=s(l, d, cfg.n_experts),
+            w_gate=s(l, cfg.n_experts, d, f),
+            w_up=s(l, cfg.n_experts, d, f),
+            w_down=s(l, cfg.n_experts, f, d),
+        )
+    else:
+        layers.update(w_gate=s(l, d, f), w_up=s(l, d, f), w_down=s(l, f, d))
     return {"embed": s(v, d), "layers": layers, "final_norm": s(d), "unembed": s(d, v)}
 
 
@@ -91,7 +155,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
                 device=None) -> dict:
     """Seeded parameter init, as the reference's: matrices normal with std
     0.02, norm scales 1 (0 under gemma's ``(1 + w)`` convention). Drawn on
-    ``device`` from ``generator`` (which lives there; seed 0 when None)."""
+    ``device`` from ``generator`` (which lives there; seed 0 when None).
+    The MoE leaves are drawn one layer at a time, so the float32 draw
+    never holds a whole stack (qwen3-moe-30b-a3b's ``w_gate`` is 38.7 GB
+    in float32)."""
     device = torch.device("cpu" if device is None else device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -101,10 +168,17 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
             return init_dense(generator, spec.shape, spec.dtype, scale=0.02, device=device)
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
 
+    def stacked(spec: ParamSpec) -> torch.Tensor:
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        for i in range(spec.shape[0]):
+            out[i] = leaf(ParamSpec(spec.shape[1:], spec.dtype))
+        return out
+
     shapes = param_shapes(cfg)
     params = {
         "embed": leaf(shapes["embed"]),
-        "layers": {name: leaf(spec) for name, spec in shapes["layers"].items()},
+        "layers": {name: (stacked if name in _MOE_LEAVES and cfg.is_moe else leaf)(spec)
+                   for name, spec in shapes["layers"].items()},
         "final_norm": leaf(shapes["final_norm"]),
         "unembed": leaf(shapes["unembed"]),
     }
@@ -116,7 +190,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
 
 
 def _layer(params: dict, i: int) -> dict:
-    return {name: params["layers"][name][i] for name in _LAYER_LEAVES}
+    return {name: w[i] for name, w in params["layers"].items()}
 
 
 def _layer_windows(cfg: TransformerConfig) -> list[bool]:
@@ -131,19 +205,6 @@ def _window(cfg: TransformerConfig) -> int:
     return cfg.sliding_window if cfg.sliding_window is not None else 4096
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., D] @ w [D, N]`` with a float32 result: bfloat16 products
-    are exact in float32, so both paths accumulate the same products in
-    float32 (the reference's ``preferred_element_type=f32``)."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
-    return out.reshape(*lead, w.shape[-1])
-
-
 def _dense_ffn(x, w_gate, w_up, w_down, cfg: TransformerConfig):
     """SwiGLU / GeGLU (tanh-approximate gelu) with intermediates in ``x``'s
     dtype, as the reference."""
@@ -151,6 +212,18 @@ def _dense_ffn(x, w_gate, w_up, w_down, cfg: TransformerConfig):
     g = x @ w_gate
     u = x @ w_up
     return ((act(g) * u).to(x.dtype) @ w_down).to(x.dtype)
+
+
+def _ffn(y, lp, ctx: ModelContext):
+    """The FFN of a layer: the context's MoE layer (partials summed over its
+    mesh) or the dense one. y [B,S,D], or [B,D] in decode (one position a
+    sequence, as the reference's ``y2[:, None]``)."""
+    if not ctx.cfg.is_moe:
+        return _dense_ffn(y, lp["w_gate"], lp["w_up"], lp["w_down"], ctx.cfg)
+    one = y.dim() == 2
+    f, _ = ctx.moe_layer(y[:, None] if one else y, lp["router"], lp["w_gate"], lp["w_up"],
+                         lp["w_down"])
+    return f[:, 0] if one else f
 
 
 def _attn_block(x, lp, cfg: TransformerConfig, *, window_active: bool, q_offset: int = 0,
@@ -185,34 +258,50 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.
     return x
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
-    """tokens [B,S] -> (hidden x [B,S,D] after the final norm, aux 0.0).
+def forward_hidden(params: dict, tokens: torch.Tensor, ctx: ModelContext | TransformerConfig):
+    """tokens [B,S] -> (hidden x [B,S,D] after the final norm, MoE aux).
 
     The residual carry crosses layers in float32, as the reference's
-    (each layer computes in the config's dtype)."""
-    _dense_only(cfg)
+    (each layer computes in the config's dtype); so does the aux loss
+    (0.0 for a dense config)."""
+    ctx = _context(ctx)
+    cfg = ctx.cfg
     dt = _dtype(cfg)
     x32 = _embed(params, tokens, cfg).float()
+    aux = torch.zeros((), dtype=torch.float32, device=x32.device)
     for i, windowed in enumerate(_layer_windows(cfg)):
         lp = _layer(params, i)
         x = x32.to(dt)
         x = x + _attn_block(x, lp, cfg, window_active=windowed)
         y = rms_norm(x, lp["ffn_norm"], one_plus=cfg.rms_one_plus)
-        x = x + _dense_ffn(y, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
-        x32 = x.float()
+        if cfg.is_moe:
+            f, aux_l = ctx.moe_layer(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"])
+            aux = aux + aux_l
+        else:
+            f = _dense_ffn(y, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
+        x32 = (x + f).float()
     x = rms_norm(x32.to(dt), params["final_norm"], one_plus=cfg.rms_one_plus)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def apply_unembed(params: dict, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """Float32 logits with the final soft cap."""
-    return softcap(_matmul_f32(x, params["unembed"]), cfg.final_softcap)
+    return softcap(matmul_f32(x, params["unembed"]), cfg.final_softcap)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+def forward(params: dict, tokens: torch.Tensor, ctx: ModelContext | TransformerConfig):
     """Full logits [B,S,V] (tests and small models only)."""
-    x, aux = forward_hidden(params, tokens, cfg)
-    return apply_unembed(params, x, cfg), aux
+    ctx = _context(ctx)
+    x, aux = forward_hidden(params, tokens, ctx)
+    return apply_unembed(params, x, ctx.cfg), aux
+
+
+def decode_layout(rules: AxisRules, batch: int):
+    """(seq_axes, batch axes): batch 1 shards the cache's sequence over
+    *all* axes, as the reference's ``decode_layout``."""
+    if batch == 1:
+        return (*rules.dp, rules.tp), None
+    return (rules.tp,), rules.dp if len(rules.dp) > 1 else rules.dp[0]
 
 
 def cache_shapes(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
@@ -225,7 +314,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None) ->
             for name, spec in cache_shapes(cfg, batch, max_len).items()}
 
 
-def make_serve_step(cfg: TransformerConfig, *, batch: int):
+def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
     """One-token decode over the KV cache.
 
     ``serve_step(params, cache, tokens [B], t) -> (logits [B,V] float32,
@@ -241,8 +330,24 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
     device; a tensor is not checked on the host (the decode kernel flags a
     position outside the cache, `flash_decode.take_error`). Any other
     tensor (one element, on another device) is read as a host int.
+
+    The cache lies on one device. Where the context's mesh would shard its
+    sequence (the reference's ``decode_layout``: over every axis at batch
+    1, over ``tp`` otherwise) across more than one shard, the reference
+    attends with ``decode_attend_seqsharded`` (partials per shard and a
+    log-sum-exp merge); that waits for the sequence-sharded decode slice of
+    the port, and this raises.
     """
-    _dense_only(cfg)
+    ctx = _context(ctx)
+    cfg = ctx.cfg
+    if ctx.mesh is not None:
+        seq_axes, _ = decode_layout(ctx.rules, batch)
+        n_seq = math.prod(ctx.mesh.shape[a] for a in seq_axes)
+        if n_seq > 1:
+            raise NotImplementedError(
+                f"a KV cache sharded over {seq_axes} ({n_seq} shards) needs "
+                "decode_attend_seqsharded, which waits for the sequence-sharded decode "
+                "slice of the port")
     windows = _layer_windows(cfg)
     dt = _dtype(cfg)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -282,18 +387,19 @@ def make_serve_step(cfg: TransformerConfig, *, batch: int):
                                  cap=cfg.attn_softcap).to(dt)
             x = x + (o.reshape(b, h * hd) @ lp["wo"]).to(dt)
             y2 = rms_norm(x, lp["ffn_norm"], one_plus=cfg.rms_one_plus)
-            x = x + _dense_ffn(y2, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
+            x = x + _ffn(y2, lp, ctx)
         x = rms_norm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
         return apply_unembed(params, x, cfg), cache
 
     return serve_step
 
 
-def make_prefill_step(cfg: TransformerConfig):
+def make_prefill_step(ctx: ModelContext | TransformerConfig):
     """Process full prompts: ``prefill(params, tokens [B,S]) -> (logits
     [B,V] float32 at the last position, {"k", "v"} [L,B,S,KV,hd])``. The
     residual stays in the config's dtype, as the reference's prefill."""
-    _dense_only(cfg)
+    ctx = _context(ctx)
+    cfg = ctx.cfg
     windows = _layer_windows(cfg)
 
     def prefill(params, tokens):
@@ -307,7 +413,7 @@ def make_prefill_step(cfg: TransformerConfig):
             cache["v"][i] = v
             x = x + o
             y = rms_norm(x, lp["ffn_norm"], one_plus=cfg.rms_one_plus)
-            x = x + _dense_ffn(y, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
+            x = x + _ffn(y, lp, ctx)
         x = rms_norm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
         return apply_unembed(params, x[:, -1], cfg), cache
 

@@ -10,8 +10,8 @@ Public surface:
   (``try_submit`` for typed admission outcomes).
 * :class:`~repro_torch.serve.session.LexicalSession` /
   :class:`~repro_torch.serve.session.DenseSession` — resident-corpus scan state.
-* :class:`~repro_torch.serve.session.ShardedLexicalSession` — waits for the
-  mesh slice (raises ``NotImplementedError``).
+* :class:`~repro_torch.serve.session.ShardedLexicalSession` — the corpus
+  resident sharded across a mesh, answers bit-identical to ``LexicalSession``.
 * :class:`~repro_torch.serve.microbatch.Microbatcher` — deadline/size triggers +
   bucket padding, capped ladder (importable standalone for tests).
 * :class:`~repro_torch.serve.admission.AdmissionController` — bounded queue,

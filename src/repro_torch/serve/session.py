@@ -19,8 +19,9 @@ host is the synchronization point: a caller's clock around ``search``
 finished device work, as ``jax.block_until_ready`` makes it do in the
 reference.
 
-:class:`ShardedLexicalSession` (a corpus resident across a mesh) waits for
-the mesh slice.
+:class:`ShardedLexicalSession` keeps the corpus resident *sharded* across a
+`repro_torch.distributed.sharding.Mesh` and reduces every block through the
+cluster merge contract (`repro_torch.cluster.search_mesh`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import cluster
 from repro_torch.core import anchors, packing, pipeline, scan, topk
 from repro_torch.core.scoring import PAD_TOKEN, CollectionStats, Scorer, get_scorer
 from repro_torch.device import resolve_device
@@ -141,17 +143,103 @@ class LexicalSession:
 
 
 class ShardedLexicalSession:
-    """A lexical session with the corpus resident *sharded* across a mesh:
-    waits for the mesh slice of the port."""
+    """Shard-resident lexical session: the corpus lives *sharded* on a mesh.
+
+    The paper's cluster as a service: each shard's contiguous rows are
+    resident on the shard's device (packed or not, ``token_pack`` as in
+    :class:`LexicalSession`), the statistics are replicated on each device,
+    every query block goes to every shard, each shard runs the same map
+    fold as the single-device session (`cluster.map_shard`, one CUDA stream
+    a shard on a card) and the shards' states reduce through the cluster
+    merge contract (`topk.merge_across_lex`). So a sharded session's rows
+    are bit-identical to :class:`LexicalSession`'s, whatever the mesh's
+    shape. Drop-in for ``LexicalSession`` under
+    `repro_torch.serve.service.RetrievalService` (same ``kind``/
+    ``pad_value``/``search``, same ``[n_q, k]`` rows).
+
+    Where every shard has the same device (one card: the mesh repeats
+    ``cuda:0``), the corpus is resident once on it and each shard is a
+    view of its rows, so the session holds :class:`LexicalSession`'s bytes;
+    otherwise each device holds only its shards' rows. The plan is
+    validated by `cluster.plan_for_mesh` (equal chunk-aligned shards over
+    the scan axes). ``use_kernel`` is accepted and changes nothing.
+    """
 
     kind = "lexical"
     pad_value = PAD_TOKEN
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedLexicalSession (a corpus sharded across a mesh) waits for the "
-            "mesh slice of the port"
-        )
+    def __init__(
+        self,
+        mesh,
+        tokens,
+        lengths,
+        scorer: Scorer | str,
+        *,
+        k: int,
+        chunk_size: int,
+        stats: CollectionStats | None = None,
+        vocab: int | None = None,
+        use_kernel: bool | None = None,
+        axis_names: tuple[str, ...] | None = None,
+        token_pack: str | None = None,
+    ):
+        self.scorer = get_scorer(scorer) if isinstance(scorer, str) else scorer
+        if self.scorer.kind != "lexical":
+            raise ValueError(f"scorer {self.scorer.name!r} is not lexical")
+        if token_pack is None:
+            token_pack = tune_config.active().config.token_pack
+        self.use_kernel = use_kernel
+        self.k = k
+        self.chunk_size = chunk_size
+        self.mesh = mesh
+        if axis_names is None:
+            axis_names = cluster.mesh_scan_axes(mesh)
+        self.axis_names = tuple(axis_names)
+        self.plan = cluster.plan_for_mesh(mesh, len(tokens), chunk_size=chunk_size,
+                                          axis_names=self.axis_names)
+        self._scan = cluster.search_mesh(mesh, None, lengths, self.scorer, k=k,
+                                         chunk_size=chunk_size, axis_names=self.axis_names)
+        self.device = self._scan.home
+        if stats is None:
+            if vocab is None:
+                raise ValueError("need stats or vocab to derive collection statistics")
+            stats = anchors.collection_stats(
+                torch.as_tensor(tokens, dtype=torch.int32, device=self.device),
+                torch.as_tensor(lengths, dtype=torch.int32, device=self.device),
+                vocab=vocab, chunk_size=chunk_size, mesh=mesh, axis_name=self.axis_names)
+        stats = CollectionStats(*(torch.as_tensor(x) for x in stats))
+        self._stats = self._scan.place_stats(stats)
+        if vocab is None:
+            vocab = int(stats.cf.shape[0])
+        one_device = len(set(self._scan.devices)) == 1
+        resident = _pack_resident(tokens, lengths, vocab=vocab, mode=token_pack,
+                                  device=self.device if one_device else "cpu")
+        self._shards = self._scan.place(resident)
+
+    @property
+    def n_docs(self) -> int:
+        return self.plan.n_docs
+
+    @property
+    def pack_mode(self) -> str:
+        """Resolved resident storage: ``none`` or the PackSpec mode."""
+        if isinstance(self._shards[0], packing.PackedCorpus):
+            return self._shards[0].spec.mode
+        return "none"
+
+    @property
+    def resident_corpus_bytes(self) -> int:
+        """Device bytes held by the resident corpus (tokens + lengths),
+        over every shard."""
+        return sum(packing.tree_nbytes(s) for s in self._shards)
+
+    def search(self, q_block: np.ndarray) -> topk.TopKState:
+        """Scan one padded query block across all shards; returns once the
+        merged top-k is on the host."""
+        q = torch.as_tensor(np.asarray(q_block, np.int32), device=self.device)
+        state = self._scan.run_placed(q, self._shards, self._stats)
+        # one scorer -> drop the grid axis: service rows are [n_q, k]
+        return _to_host(topk.TopKState(scores=state.scores[0], ids=state.ids[0]))
 
 
 class DenseSession:

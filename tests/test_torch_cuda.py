@@ -20,7 +20,12 @@ checkpoints equal the synchronous job's, two workers on two streams give
 the synchronous job's bits under seeded chaos, launches count exactly under
 threads, and a segment fold makes no host sync. The anchor job on the card
 gives the CPU's bytes, a grid's pass gives each model's single pass, and
-the index ranks as the scan. ``chip_smoke.py`` makes the same checks at
+the index ranks as the scan. The mesh on one card (every shard ``cuda:0``,
+one CUDA stream a shard): `search_mesh` gives the one-shard scan's bytes
+whatever the caller's stream is still doing, with no host sync, and the
+sharded session the resident session's rows in the same bytes of memory;
+the reduced MoE LM on the card is within 1e-4 / 1e-5 of the CPU and its
+decode step makes no host sync. ``chip_smoke.py`` makes the same checks at
 the full width.
 """
 
@@ -714,3 +719,127 @@ def test_cuda_grid_pass_and_index_agree():
                             stats=type(stats)(*(t.to(dev) for t in istats)))
     assert_rankings_close(got.scores.cpu().numpy(), got.ids.cpu().numpy(), want_s, want_i,
                           tol=3e-5)
+
+
+def _card_mesh(dev, shape, names):
+    from repro_torch.distributed.sharding import Mesh
+
+    arr = np.empty(shape, dtype=object)
+    arr.fill(dev)
+    return Mesh(arr, names)
+
+
+@pytest.mark.cuda
+def test_cuda_search_mesh_orders_its_streams():
+    """Each shard's stream waits for the caller's stream (the queries are
+    written there after a long sleep), the merge waits for every shard's
+    stream, and the result is the one-shard scan's bytes, one kernel launch
+    a shard; the shards' streams are not the caller's."""
+    from repro_torch import cluster
+    from repro_torch.core import scan
+
+    dev = _card()
+    _, docs, stats, q, grid = _scan_collection(dev, seed=904)
+    want = scan.search_local_multi(q, docs, grid, k=100, chunk_size=1024, stats=stats)
+    host_q = q.cpu().pin_memory()
+    for shape, names in (((4,), ("data",)), ((2, 2), ("data", "model")), ((1,), ("data",))):
+        fn = cluster.search_mesh(_card_mesh(dev, shape, names), q, docs, grid, k=100,
+                                 chunk_size=1024, stats=stats)
+        assert all(s is not None and s != torch.cuda.current_stream() for s in fn.streams)
+        fn(q, docs, stats)  # first call: the kernel is built
+        late = torch.zeros_like(q)
+        torch.cuda.synchronize()
+        before = ops.LAUNCHES["lexical_scan_topk"]
+        torch.cuda._sleep(50_000_000)  # the caller's stream is busy for a while
+        late.copy_(host_q, non_blocking=True)
+        got = fn(late, docs, stats)
+        assert torch.equal(got.ids, want.ids), shape
+        assert torch.equal(got.scores.view(torch.int32), want.scores.view(torch.int32)), shape
+        assert ops.LAUNCHES["lexical_scan_topk"] - before == len(fn.devices)
+
+
+@pytest.mark.cuda
+def test_cuda_search_mesh_makes_no_host_sync():
+    from repro_torch import cluster
+
+    dev = _card()
+    _, docs, stats, q, grid = _scan_collection(dev, seed=905)
+    fn = cluster.search_mesh(_card_mesh(dev, (2, 2), ("data", "model")), q, docs, grid,
+                             k=100, chunk_size=1024, stats=stats)
+    want = fn(q, docs, stats)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(q, docs, stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_session_is_the_resident_session():
+    from repro_torch.serve import LexicalSession, ShardedLexicalSession
+
+    dev = _card()
+    host, _, stats, q, _ = _scan_collection(dev, seed=906)
+    queries = q.cpu().numpy()
+    for pack in ("none", "auto"):
+        base = LexicalSession(*host, "ql_lm", k=50, chunk_size=1024, stats=stats,
+                              token_pack=pack)
+        sharded = ShardedLexicalSession(_card_mesh(dev, (4,), ("data",)), *host, "ql_lm",
+                                        k=50, chunk_size=1024, stats=stats, token_pack=pack)
+        assert sharded.resident_corpus_bytes == base.resident_corpus_bytes
+        a, b = base.search(queries), sharded.search(queries)
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores), pack
+
+
+@pytest.mark.cuda
+def test_cuda_moe_lm_matches_the_cpu_and_decodes_without_host_sync():
+    """The reduced qwen3-moe-30b-a3b (float32) on the card against the CPU:
+    prefill and 8 decode steps within 1e-4 / 1e-5; then decode steps with
+    ``t`` on the card make no host sync and give the host-int steps' bits."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import synthetic
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.models import transformer as tfm
+
+    dev = _card()
+    cfg = reduced_config("qwen3-moe-30b-a3b")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(3))
+    on_card = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+               for k, v in params.items()}
+    tokens = torch.as_tensor(synthetic.make_lm_batch(batch=2, seq_len=32, vocab=cfg.vocab,
+                                                     seed=3)["tokens"])
+    out = {}
+    for where, p in (("cpu", params), ("cuda", on_card)):
+        mesh = _card_mesh(torch.device(where), (1, 1), ("data", "model"))
+        rules = rules_for_mesh(mesh)
+        prefill = tfm.make_prefill_step(tfm.make_context(cfg, mesh, rules, tokens_per_shard=64,
+                                                         moe_mode="seq"))
+        step = tfm.make_serve_step(tfm.make_context(cfg, mesh, rules, tokens_per_shard=2),
+                                   batch=2)
+        logits, cache = prefill(p, tokens.to(where))
+        full = tfm.init_cache(cfg, 2, 48, device=where)
+        full["k"][:, :, :32], full["v"][:, :, :32] = cache["k"], cache["v"]
+        seq = [logits.cpu()]
+        for t in range(32, 40):
+            logits, full = step(p, full, torch.argmax(seq[-1], -1).to(where), t)
+            seq.append(logits.cpu())
+        out[where] = (seq, step, full)
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    _, step, full = out["cuda"]
+    copy = {n: x.clone() for n, x in full.items()}
+    tok = torch.argmax(out["cuda"][0][-1], -1).to(dev)
+    t_dev = torch.tensor(40, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    for t in range(40, 44):
+        want, full = step(on_card, full, tok, t)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, copy = step(on_card, copy, tok, t_dev)
+            t_dev.add_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), t
+        tok = torch.argmax(want, -1)

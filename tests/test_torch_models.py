@@ -8,7 +8,11 @@ bit), `make_lm_batch` (byte for byte), and the LM serving path itself:
 `make_serve_step` over several steps (logits and caches), a decode that
 starts from a prefilled cache and crosses the sliding window, and
 `forward`, for the reduced ``gemma2-2b``, ``gemma2-27b`` and
-``h2o-danube-1.8b`` in float32.
+``h2o-danube-1.8b`` in float32, and the same path for the reduced MoE
+``qwen3-moe-30b-a3b`` and ``dbrx-132b`` through contexts on a 1x1 mesh
+(`make_context`: prefill with ``tokens_per_shard`` = B*S in ``seq`` mode,
+decode with ``tokens_per_shard`` = B, as the reference's smoke tests),
+whose routing and capacity drops follow the reference's.
 
 The reference runs under a one-device mesh with ``Auto`` axes entered by
 ``jax.set_mesh``: its ``make_test_mesh`` builds ``Explicit`` axes, under
@@ -35,10 +39,13 @@ from repro.models import common as ref_common
 from repro.models import transformer as ref_tfm
 from repro_torch import configs, convert
 from repro_torch.data import synthetic
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import attention, common
 from repro_torch.models import transformer as tfm
 
 ARCHS = ("gemma2-2b", "gemma2-27b", "h2o-danube-1.8b")
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
 TOL = {"rtol": 1e-4, "atol": 1e-5}
 EXACT = {"rtol": 1e-6, "atol": 1e-6}
 
@@ -49,8 +56,15 @@ def mesh():
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
 
 
-def _ref_ctx(cfg, mesh, batch):
-    return ref_tfm.make_context(cfg, mesh, rules_for_mesh(mesh), tokens_per_shard=batch)
+def _ref_ctx(cfg, mesh, batch, mode="train"):
+    return ref_tfm.make_context(cfg, mesh, rules_for_mesh(mesh), tokens_per_shard=batch,
+                                moe_mode=mode)
+
+
+def _port_ctx(arch, tokens_per_shard, mode="train", shape=(1, 1)):
+    mesh = make_test_mesh(*shape, device="cpu")
+    return tfm.make_context(configs.reduced_config(arch), mesh, sharding.rules_for_mesh(mesh),
+                            tokens_per_shard=tokens_per_shard, moe_mode=mode)
 
 
 def _params(arch, seed=0):
@@ -75,7 +89,7 @@ def _close(a, b, what, tol=TOL):
 # configs, data, params
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_match_the_reference(arch):
     mine, ref = configs.get_config(arch), ref_configs.get_config(arch)
     assert vars(mine) == vars(ref)
@@ -85,16 +99,16 @@ def test_configs_match_the_reference(arch):
 
 
 def test_later_slices_refuse_their_configs():
-    for arch, slice_name in (("dbrx-132b", "MoE"), ("qwen3-moe-30b-a3b", "MoE"),
-                             ("pna", "GNN"), ("sasrec", "recsys"), ("fm", "recsys")):
+    for arch, slice_name in (("pna", "GNN"), ("sasrec", "recsys"), ("fm", "recsys"),
+                             ("dcn-v2", "recsys"), ("mind", "recsys")):
         with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
             configs.get_config(arch)
-    moe = configs.get_config("gemma2-2b").__class__(
-        name="moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
-        n_experts=4, top_k=2)
-    for build in (tfm.make_prefill_step, tfm.param_shapes,
-                  lambda c: tfm.make_serve_step(c, batch=2)):
-        with pytest.raises(NotImplementedError, match="MoE slice"):
+    # the MoE configs run now (the MoE slice), through a context with a MoE
+    # layer: a step built from a MoE config alone says how to build one
+    moe = configs.reduced_config("qwen3-moe-30b-a3b")
+    assert tfm.param_shapes(moe)["layers"]["w_gate"].shape == (2, 4, 64, 128)
+    for build in (tfm.make_prefill_step, lambda c: tfm.make_serve_step(c, batch=2)):
+        with pytest.raises(ValueError, match="make_context"):
             build(moe)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("nope")
@@ -110,7 +124,7 @@ def test_make_lm_batch_is_the_references_bytes():
             assert mine[key].tobytes() == ref[key].tobytes()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_params_from_numpy_carries_the_references_init(arch):
     cfg = ref_configs.reduced_config(arch)
     ref_params = jax.tree.map(np.asarray, ref_tfm.init_params(cfg, jax.random.key(1)))
@@ -347,3 +361,81 @@ def test_serve_step_refuses_what_it_cannot_take():
     assert tfm._layer_windows(cfg) == [True, False]
     assert tfm._layer_windows(configs.reduced_config("h2o-danube-1.8b")) == [True, True]
     assert tfm._window(cfg) == 8
+
+
+# ---------------------------------------------------------------------------
+# MoE serving through contexts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_then_decode_match_the_reference(arch, mesh):
+    """The reduced MoE configs: prefill 16 tokens (capacity from B*S, seq
+    mode), copy the cache into 32 slots, decode 10 greedy steps (capacity
+    from B), then the full forward with its aux loss."""
+    cfg, ref_params, port_params = _params(arch, seed=6)
+    batch, prompt, slots = 2, 16, 32
+    tokens = synthetic.make_lm_batch(batch=batch, seq_len=prompt, vocab=cfg.vocab, seed=6)["tokens"]
+    cfg_port = configs.reduced_config(arch)
+    pctx = _port_ctx(arch, batch * prompt, "seq")
+    logits, cache = tfm.make_prefill_step(pctx)(port_params, torch.tensor(tokens))
+    with jax.set_mesh(mesh):
+        rctx_p = _ref_ctx(cfg, mesh, batch * prompt, "seq")
+        rctx = _ref_ctx(cfg, mesh, batch)
+        rlogits, rcache = ref_tfm.make_prefill_step(rctx_p)(ref_params, jnp.asarray(tokens))
+        _close(logits, rlogits, f"{arch} prefill logits")
+        for name in ("k", "v"):
+            _close(cache[name], rcache[name], f"{arch} prefill cache {name}")
+        full = tfm.init_cache(cfg_port, batch, slots)
+        rfull = ref_tfm.init_cache(cfg, batch, slots)
+        for name in ("k", "v"):
+            full[name][:, :, :prompt] = cache[name]
+            rfull[name] = rfull[name].at[:, :, :prompt].set(rcache[name])
+        step = tfm.make_serve_step(_port_ctx(arch, batch), batch=batch)
+        rstep = jax.jit(ref_tfm.make_serve_step(rctx, batch=batch))
+        tok = torch.argmax(logits, dim=-1)
+        rtok = jnp.argmax(rlogits, -1).astype(jnp.int32)
+        for t in range(prompt, prompt + 10):
+            assert np.array_equal(tok.numpy(), np.asarray(rtok)), f"{arch} tokens at t={t}"
+            logits, full = step(port_params, full, tok, t)
+            rlogits, rfull = rstep(ref_params, rfull, rtok, jnp.asarray(t, jnp.int32))
+            _close(logits, rlogits, f"{arch} decode logits at t={t}")
+            tok = torch.argmax(logits, dim=-1)
+            rtok = jnp.argmax(rlogits, -1).astype(jnp.int32)
+        for name in ("k", "v"):
+            _close(full[name], rfull[name], f"{arch} decoded cache {name}")
+        flogits, aux = tfm.forward(port_params, torch.tensor(tokens), pctx)
+        rflogits, raux = ref_tfm.forward(ref_params, jnp.asarray(tokens), rctx_p)
+    _close(flogits, rflogits, f"{arch} forward logits")
+    _close(aux, raux, f"{arch} aux loss")
+    assert float(aux) > 0
+
+
+def test_moe_contexts_and_the_sequence_sharded_cache():
+    cfg = configs.reduced_config("qwen3-moe-30b-a3b")
+    full = configs.get_config("qwen3-moe-30b-a3b")
+    # both MoE configs hold more than 2^33 B of expert weights: ZeRO-3 them
+    assert tfm.uses_fsdp_experts(full) and tfm.uses_fsdp_experts(configs.get_config("dbrx-132b"))
+    assert not tfm.uses_fsdp_experts(cfg) and not tfm.uses_fsdp_experts(
+        configs.get_config("gemma2-2b"))
+    assert tfm.uses_fsdp_experts(full) == ref_tfm.uses_fsdp_experts(
+        ref_configs.get_config("qwen3-moe-30b-a3b"))
+    assert round(full.param_count() * 2 / 1e9, 1) == 60.2
+    # a MoE config without tokens_per_shard gets no layer, as the reference's
+    mesh = make_test_mesh(1, 1, device="cpu")
+    rules = sharding.rules_for_mesh(mesh)
+    assert tfm.make_context(cfg, mesh, rules).moe_layer is None
+    assert tfm.make_context(configs.reduced_config("gemma2-2b"), mesh, rules,
+                            tokens_per_shard=4).moe_layer is None
+    # a cache whose sequence would span shards waits for decode_attend_seqsharded
+    for shape, batch in (((1, 2), 2), ((2, 1), 1)):
+        with pytest.raises(NotImplementedError, match="decode_attend_seqsharded"):
+            tfm.make_serve_step(_port_ctx("qwen3-moe-30b-a3b", batch, shape=shape), batch=batch)
+    tfm.make_serve_step(_port_ctx("qwen3-moe-30b-a3b", 2, shape=(2, 1)), batch=2)
+    # the MoE layer over a 2-way tp mesh serves the 1x1 layer's prefill
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(7))
+    tokens = torch.tensor(synthetic.make_lm_batch(batch=2, seq_len=16, vocab=cfg.vocab,
+                                                  seed=7)["tokens"])
+    want, _ = tfm.make_prefill_step(_port_ctx("qwen3-moe-30b-a3b", 32, "seq"))(params, tokens)
+    got, _ = tfm.make_prefill_step(_port_ctx("qwen3-moe-30b-a3b", 32, "seq", (1, 2)))(
+        params, tokens)
+    _close(got, want, "prefill logits over a 2-way tp mesh")

@@ -421,10 +421,13 @@ def test_sweep_and_bench_json_name_the_device(tmp_path):
 
 
 def test_what_waits_for_later_slices_says_so():
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        port_serve.ShardedLexicalSession(None, None, None, "ql_lm", k=1, chunk_size=1)
+    # the sharded session runs now (the mesh slice): it validates as the
+    # reference's does
     tokens = np.zeros((64, 4), np.int32)
     lens = np.full(64, 4, np.int32)
+    with pytest.raises(ValueError, match="need stats or vocab"):
+        port_serve.ShardedLexicalSession(_mesh((1,), ("data",)), tokens, lens, "ql_lm", k=1,
+                                         chunk_size=64)
     # packed resident corpora run now (the packing slice), from the argument
     # or from the active tuning's knob
     packed = port_serve.LexicalSession(tokens, lens, "ql_lm", k=2, chunk_size=64, vocab=8,
@@ -441,3 +444,130 @@ def test_what_waits_for_later_slices_says_so():
                                 device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         port_serve.DenseSession(np.zeros((60, 4), np.float32), k=2, chunk_size=64, device="cpu")
+
+
+# ------------------------------------------ sharded sessions (the mesh)
+
+
+def _mesh(shape, names):
+    from repro_torch.distributed.sharding import Mesh
+
+    arr = np.empty(shape, dtype=object)
+    arr.fill(torch.device("cpu"))
+    return Mesh(arr, names)
+
+
+SHARDED_MESHES = [((1, 1), ("data", "model")), ((4,), ("data",)), ((2, 2), ("data", "model"))]
+
+
+@pytest.mark.parametrize("token_pack", ["none", "auto"])
+@pytest.mark.parametrize("shape,names", SHARDED_MESHES)
+def test_sharded_session_matches_resident_session(shape, names, token_pack):
+    """The counterpart of the reference's test_cluster.py sharded-session
+    test: rows bit-identical to the resident single-device session's, packed
+    or not, at every mesh shape; a shard is a view of the one resident
+    corpus, so the resident bytes are the single session's."""
+    corpus, _, base = _lexical(k=10)
+    stats = base._stats
+    sharded = port_serve.ShardedLexicalSession(
+        _mesh(shape, names), corpus.tokens, corpus.lengths, "ql_lm", k=10, chunk_size=64,
+        stats=stats, token_pack=token_pack)
+    plain = port_serve.LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", k=10,
+                                      chunk_size=64, stats=stats, token_pack=token_pack,
+                                      device="cpu")
+    assert sharded.n_docs == base.n_docs and sharded.pack_mode == plain.pack_mode
+    assert sharded.resident_corpus_bytes == plain.resident_corpus_bytes
+    assert sharded.plan.n_shards == int(np.prod(shape))
+    q = ref_mb.pad_rows(synthetic.make_queries(corpus, n_queries=13, seed=3), 16, PAD)
+    a, b = base.search(q), sharded.search(q)
+    assert b.ids.shape == (16, 10) and b.scores.device.type == "cpu"
+    assert torch.equal(a.ids, b.ids)
+    assert torch.equal(a.scores.view(torch.int32), b.scores.view(torch.int32))
+    # the statistics derived over the mesh from the vocab are the given ones
+    derived = port_serve.ShardedLexicalSession(
+        _mesh(shape, names), corpus.tokens, corpus.lengths, "ql_lm", k=10, chunk_size=64,
+        vocab=256, token_pack=token_pack)
+    c = derived.search(q)
+    assert torch.equal(c.ids, a.ids) and torch.equal(c.scores, a.scores)
+
+
+PAD = port_serve.LexicalSession.pad_value
+
+
+def test_sharded_session_serves_through_dispatcher():
+    from repro_torch.core import scan
+    from repro_torch.core.scoring import get_scorer
+
+    corpus, _, base = _lexical(k=10)
+    session = port_serve.ShardedLexicalSession(
+        _mesh((2, 2), ("data", "model")), corpus.tokens, corpus.lengths, "bm25", k=10,
+        chunk_size=64, stats=base._stats)
+    svc = port_serve.RetrievalService({"lexical": session}, max_batch=4, max_delay=0.0)
+    queries = synthetic.make_queries(corpus, n_queries=4, seed=5)
+    rids = [svc.submit(q) for q in queries]
+    results = svc.poll() or svc.drain()
+    want = scan.search_local_multi(
+        torch.tensor(queries), (torch.tensor(corpus.tokens), torch.tensor(corpus.lengths)),
+        [get_scorer("bm25")], k=10, chunk_size=64, stats=base._stats)
+    for row, rid in enumerate(rids):
+        np.testing.assert_array_equal(results[rid].ids, want.ids[0, row].numpy())
+
+
+def test_sharded_session_validates():
+    corpus, _, _ = _lexical(k=4)
+    mesh = _mesh((1, 1), ("data", "model"))
+    with pytest.raises(ValueError, match="not lexical"):
+        port_serve.ShardedLexicalSession(mesh, corpus.tokens, corpus.lengths, "dense_dot",
+                                         k=4, chunk_size=64, vocab=256)
+    with pytest.raises(ValueError, match="need stats or vocab"):
+        port_serve.ShardedLexicalSession(mesh, corpus.tokens, corpus.lengths, "ql_lm", k=4,
+                                         chunk_size=64)
+    with pytest.raises(ValueError, match="not a multiple"):
+        port_serve.ShardedLexicalSession(_mesh((16,), ("data",)), corpus.tokens,
+                                         corpus.lengths, "ql_lm", k=4, chunk_size=64,
+                                         vocab=256)
+
+
+@pytest.mark.parametrize("token_pack", ["none", "auto"])
+def test_sharded_session_behind_admission_byte_identical(token_pack):
+    """The counterpart of the reference's sharded-session script
+    (tests/test_serve_policy.py): a 4-shard session behind admission, the
+    adaptive policy, QoS lanes and forced shedding returns, for every
+    admitted request, the bytes of the unthrottled single-device oracle."""
+    corpus = synthetic.make_corpus(n_docs=512, vocab=512, max_len=24, seed=0)
+    sharded = port_serve.ShardedLexicalSession(
+        _mesh((4,), ("data",)), corpus.tokens, corpus.lengths, "ql_lm", k=8, chunk_size=64,
+        vocab=512, token_pack=token_pack)
+    single = port_serve.LexicalSession(corpus.tokens, corpus.lengths, "ql_lm", k=8,
+                                       chunk_size=64, vocab=512, device="cpu")
+    queries = synthetic.make_queries(corpus, n_queries=40, seed=4)
+    oracle_service = port_serve.RetrievalService({"lexical": single}, max_batch=64,
+                                                 max_delay=60.0)
+    for q in queries:
+        oracle_service.submit(q, "lexical")
+    oracle = oracle_service.drain()
+    clock = ManualClock()
+    policy = port_serve.AdaptiveBatchPolicy(slo_p99_s=0.01, interval_s=0.01, min_samples=2)
+    admission = port_serve.AdmissionController(queue_limit=5, batch_watermark=0.4,
+                                               on_full="shed")
+    service = port_serve.RetrievalService(
+        {"lexical": sharded}, max_batch=8, max_delay=0.005, min_bucket=8, clock=clock,
+        registry=Metrics(), admission=admission, policy=policy)
+    completed, rid_to_qidx, n_shed = {}, {}, 0
+    for i, q in enumerate(queries):
+        out = service.try_submit(q, "lexical", lane="batch" if i % 4 == 0 else "interactive")
+        if out.admitted:
+            rid_to_qidx[out.rid] = i
+        else:
+            n_shed += 1
+        clock.t += 0.002
+        completed.update(service.poll())
+    clock.t += 1.0
+    completed.update(service.poll())
+    completed.update(service.drain())
+    assert n_shed > 0 and len(completed) == len(rid_to_qidx)
+    for rid, res in completed.items():
+        want = oracle[rid_to_qidx[rid]]
+        assert (res.scores.tobytes(), res.ids.tobytes()) == (want.scores.tobytes(),
+                                                             want.ids.tobytes())
+    assert policy.oscillation_violations == 0
