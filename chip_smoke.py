@@ -185,6 +185,43 @@ code (nothing is caught and passed over):
                   near-tie, and every layer's router choices equal except
                   where the experts that differ lie within
                   ``ROUTER_MARGIN`` of the k-th (counted and printed).
+12. ``train``     training through `launch.train` (`make_loss_fn`, AdamW,
+                  the loader, checkpoints). First the flash kernel at the
+                  training geometry of h2o-danube-1.8b (bf16, head_dim 80,
+                  32 / 8 heads, window 4,096, 2 x 8,192) against its plain
+                  version, timed beside SDPA and beside the attention
+                  backward (``train.flash``). ``train.grads``: full width,
+                  2 layers, 1 x 512 tokens, weights seeded on the CPU: the
+                  loss within ``LM_TOL`` and every leaf's gradient within
+                  ``GRAD_REL`` (relative L2) and ``GRAD_COS`` (cosine) of the
+                  CPU's, no leaf without a gradient, and a control with the
+                  bare kernel (no autograd function) must fail.
+                  ``train.full``: full width and depth (24 layers, 1.83e9
+                  parameters, bf16, float32 moments, remat), 6 steps of 2 x
+                  8,192 tokens: step seconds, tokens/s, model FLOP/s against
+                  the bf16 peak (the count printed), peak memory, the flash
+                  launches (forward and remat's recompute), then one
+                  profiled step split into forward, backward, the attention
+                  backward and the optimizer, with the idle share.
+                  ``train.resume`` (2 layers): two straight runs of 8 steps
+                  the same bytes; a failure before step 5 resumed from step
+                  4's checkpoint gives the straight run's parameters,
+                  moments and step; checkpoint bytes, save and restore
+                  seconds. ``train.compress``: ``topk`` and ``sign``, 4
+                  steps twice each, the same bytes, a residual not zero.
+                  ``train.moe``: qwen3-moe-30b-a3b at full width and 2
+                  layers, the card's loss and gradients against the CPU's
+                  at 2 x 256 tokens (routing flips only at near-ties), then
+                  3 steps with the share of routed pairs dropped.
+                  ``train.recsys``: fm, dcn-v2, mind and sasrec at their
+                  published widths, 15 steps of 32 at lr 3e-3 (dcn-v2's
+                  loss must fall, as in the reference's test), and the
+                  reduced configs on the card within 1e-5 of the CPU's
+                  losses. ``train.examples``: ``examples/torch_train_lm.py``
+                  (train, a failure, the resume, 16 greedy tokens: flash
+                  attention and flash decode launched) and
+                  ``examples/torch_candidate_retrieval.py`` (``score_topk``
+                  launched, rankings those of the CPU's run).
 
 Each phase's wall time follows it (``phase_time``). The last three lines
 are the card's ``nvidia-smi`` name and power limit, a
@@ -207,7 +244,7 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 PHASES = ("env", "build", "kernels", "experiment", "paper", "tune", "resume", "serve", "mesh",
-          "lm", "lm_moe")
+          "lm", "lm_moe", "train")
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet) and the INT32
 # compare/add rate of the CUDA cores, 64 results per clock per SM for compute
@@ -2863,6 +2900,740 @@ def phase_lm_moe(ctx, dev="cuda", cfg=None) -> None:
     torch.cuda.empty_cache()
 
 
+TRAIN_ARCH = "h2o-danube-1.8b"
+# train.grads: full width, 2 layers, 1 x 512 tokens; train.full: full depth,
+# 2 x 8,192 (the window of 4,096 bites past 4,096), 6 steps; train.resume:
+# 2 layers, 8 steps, a failure before step 5, a checkpoint every 4 steps
+GRAD_BATCH, GRAD_SEQ = 1, 512
+FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_LR = 2, 8192, 6, 1e-3
+RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 2, 1024, 8, 5, 4
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 256
+RECSYS_ARCHS = ("fm", "dcn-v2", "mind", "sasrec")
+RECSYS_STEPS, RECSYS_BATCH, RECSYS_LR = 15, 32, 3e-3
+# card against CPU, bfloat16, 2 layers: each gradient leaf's relative L2
+# error and its cosine. Both sides run the same ops in bfloat16 (every
+# product rounds to bfloat16, 2^-8 relative, at other places on cuBLAS and
+# oneDNN; the flash kernel against the plain version), compounded through
+# two layers forward and back: a few 1e-3 relative on a leaf, so 0.05 and a
+# cosine of 0.998 leave room for that and none for a missing or misplaced
+# term (a leaf without gradient, the control, has error 1 and cosine 0).
+# The MoE's routed leaves add the routing flips at near-ties (ROUTER_MARGIN):
+# a flipped token moves its gradient to another expert. They are the router,
+# the experts, and ffn_norm, whose gradient reaches it through them alone
+# (qwen3-moe has no dense FFN); its other leaves are held to GRAD_REL /
+# GRAD_COS
+GRAD_REL, GRAD_COS = 0.05, 0.998
+MOE_GRAD_REL, MOE_GRAD_COS = 0.1, 0.995
+MOE_ROUTED = ("router", "ffn_norm", "w_gate", "w_up", "w_down")
+# the LM example (float32, TF32 off) on the card against the CPU from its
+# trained weights: every product is float32 on both devices, in another
+# summation order (about 1e-7 relative a sum, some 1e-5 compounded through
+# six layers forward and back), so the loss within 1e-4 (some 1e-5
+# relative), each gradient leaf within 1e-3 relative L2 and a cosine of
+# 0.99999, and the decode logits within FLASH_TOL's float32 limits
+EXAMPLE_LOSS_TOL, EXAMPLE_GRAD_REL, EXAMPLE_GRAD_COS = 1e-4, 1e-3, 0.99999
+# the reduced recsys configs, float32 with TF32 off, card against CPU
+RECSYS_TOL = 1e-5
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev).clone()
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def _bits(t):
+    """A tensor's bytes as integers of its width (equal bits, NaN or not)."""
+    import torch
+
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    return t.detach().contiguous().view(width)
+
+
+def _differing_leaves(a: dict, b: dict) -> list:
+    """The leaves (params, both moments, step, residual) whose bits differ."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import _flatten
+
+    ta = _flatten({"params": a["params"], "opt": a["opt"], "ef": a["ef"]})
+    tb = dict(_flatten({"params": b["params"], "opt": b["opt"], "ef": b["ef"]}))
+    return [k for k, t in ta if not torch.equal(_bits(t), _bits(tb[k]))]
+
+
+def _grads_of(cfg, params, batch, dev, ctx_fn=None):
+    """Loss and every leaf's gradient of the LM loss at ``params`` on ``dev``."""
+    import torch
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tfm
+
+    ctx = ctx_fn(dev) if ctx_fn else tfm.ModelContext(cfg=cfg)
+    (loss, metrics), grads = train_cli.value_and_grad(
+        tfm.make_loss_fn(ctx, chunk=min(256, batch["tokens"].shape[1])), params,
+        {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+    return float(loss), grads
+
+
+def _compare_grads(card, cpu, rel_lim, cos_lim, routed_limits=None) -> dict:
+    """Each leaf's relative L2 error and cosine, card against CPU; a leaf with
+    no gradient or an all-zero one fails. ``routed_limits`` (rel, cos) hold
+    the MoE's routed leaves (`MOE_ROUTED`) instead."""
+    import torch
+
+    rows, bad = {}, []
+    cpu_leaves = dict(_named_leaves(cpu))
+    for name, g in _named_leaves(card):
+        if g is None or not bool((g != 0).any()):
+            bad.append(f"{name}: no gradient on the card")
+            continue
+        # float64: a float32 norm over 4e8 elements drifts by more than
+        # the differences it measures
+        g, w = g.cpu().double(), cpu_leaves[name].double()
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        cos = float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
+        del g, w
+        rel_max, cos_min = (routed_limits if routed_limits and name.rsplit("/", 1)[-1]
+                            in MOE_ROUTED else (rel_lim, cos_lim))
+        rows[name] = {"rel_l2": rel, "cos": cos}
+        if not (rel <= rel_max and cos >= cos_min):
+            bad.append(f"{name}: relative L2 {rel} (limit {rel_max}), cosine {cos} "
+                       f"(limit {cos_min})")
+    return {"leaves": rows, "failures": bad}
+
+
+def _train_grads(ctx, cfg_full, dev="cuda") -> None:
+    """Full width, 2 layers, bfloat16: the loss and every leaf's gradient on
+    the card against the CPU's, from the same weights (seeded on the CPU);
+    then the control: the same step with the bare kernel (no autograd
+    function) must fail the check."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = synthetic.make_lm_batch(batch=GRAD_BATCH, seq_len=GRAD_SEQ, vocab=cfg.vocab,
+                                    seed=0)
+    t0 = time.monotonic()
+    cpu_loss, cpu_grads = _grads_of(cfg, _tree_to(params, "cpu"), batch, "cpu")
+    cpu_s = time.monotonic() - t0
+    ops.reset_launches()
+    card_loss, card_grads = _grads_of(cfg, _tree_to(params, dev), batch, dev)
+    launches = dict(ops.LAUNCHES)
+    check = _compare_grads(card_grads, cpu_grads, GRAD_REL, GRAD_COS)
+    loss_diff = abs(card_loss - cpu_loss)
+    if loss_diff > LM_TOL or check["failures"]:
+        raise AssertionError(f"card vs CPU: loss {card_loss} / {cpu_loss}; "
+                             f"{check['failures']}")
+    if launches["flash_attention"] != 2 * cfg.n_layers:  # the forward and remat's recompute
+        raise AssertionError(f"{launches} launches for {cfg.n_layers} layers under remat")
+    real = ops.flash_attention_train
+    ops.flash_attention_train = lambda q, k, v, bwd_block=None, **kw: ops.flash_attention(
+        q, k, v, **kw)
+    try:
+        _, bare = _grads_of(cfg, _tree_to(params, dev), batch, dev)
+    finally:
+        ops.flash_attention_train = real
+    control = _compare_grads(bare, cpu_grads, GRAD_REL, GRAD_COS)
+    if not control["failures"]:
+        raise AssertionError("the bare-kernel control passes the gradient check")
+    del card_grads, cpu_grads, bare
+    emit("train.grads", arch=cfg.name, layers=cfg.n_layers, tokens=[GRAD_BATCH, GRAD_SEQ],
+         dtype=cfg.dtype, head_dim=cfg.hd, loss_card=card_loss, loss_cpu=cpu_loss,
+         loss_abs_diff=loss_diff, loss_tol=LM_TOL, rel_l2_limit=GRAD_REL, cos_limit=GRAD_COS,
+         leaves=check["leaves"], launches=launches, cpu_s=cpu_s,
+         control_failures=control["failures"], nvidia_smi=ctx["smi"])
+
+
+def _train_flash_geometry(ctx, cfg, dev="cuda") -> None:
+    """The flash kernel at the training cell's geometry (bf16, head_dim 80
+    on the mma.sync route, 32 query heads over 8 KV heads, window 4,096,
+    B 2 x S 8,192) against its plain version, timed beside SDPA (a boolean
+    window mask) and beside the attention backward of the training path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    bf16 = torch.bfloat16
+    b, s, h, kv, hd, w = FULL_BATCH, FULL_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.sliding_window
+    q = _rows(70, (b, s, h, hd), bf16)
+    k, v = _rows(71, (b, s, kv, hd), bf16), _rows(72, (b, s, kv, hd), bf16)
+    kern = lambda: flash_attn.flash_attention_cuda(q, k, v, causal=True, window=w, cap=None,
+                                                   block_q=128, block_k=128)
+    close = _flash_close("attn danube", kern(), flash_attn.flash_attention_ref(
+        q, k, v, window=w, cap=None), bf16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    torch.testing.assert_close(lib().transpose(1, 2).float(), kern().float(), rtol=3e-2,
+                               atol=3e-2, msg="sdpa danube")
+    do = _rows(73, (b, s, h, hd), bf16)
+    bwd = lambda: flash_attn.flash_attention_bwd(q, k, v, do, window=w, cap=None,
+                                                 block=cfg.q_block)
+    pairs = _window_pairs(s, w)
+    flops = 4 * b * h * hd * pairs
+    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    line = {"ms": cuda_ms(kern, reps=10, warmup=2),
+            "plain_ms": cuda_ms(lambda: flash_attn.flash_attention_ref(q, k, v, window=w,
+                                                                       cap=None), reps=1),
+            "library_ms": cuda_ms(lib, reps=5, warmup=1),
+            "bound_ms": 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S),
+            "bound_by": "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S
+            else "bytes", **close, "route": flash_attn.route(bf16, hd),
+            "backward_ms": cuda_ms(bwd, reps=2, warmup=1),
+            "backward_bound_ms": 1e3 * 2.5 * flops / BF16_OPS_PER_S,
+            "shape": f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, causal, window {w}, "
+                     "no cap"}
+    del q, k, v, qt, kt, vt, do, mask
+    torch.cuda.empty_cache()
+    if "flash_attention" in ctx["kernels"]:
+        ctx["kernels"]["flash_attention"]["training_geometry"] = {key: line[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "backward_ms")}
+    emit("train.flash", arch=cfg.name, flash_attention=line,
+         timing_note="SDPA with a boolean causal-window mask is a yardstick, never used by "
+         "the port; backward_ms is flash_attention_bwd (torch ops, one 512-row query block "
+         "at a time), its bound the 2.5x forward products at the bf16 peak",
+         nvidia_smi=ctx["smi"])
+
+
+def _model_flops(cfg, b: int, s: int) -> dict:
+    """A step's model operations: 6 N tokens over the matmul parameters (all
+    but the embedding table), plus attention's 12 B H hd pairs a layer
+    (forward 4, backward 8); remat adds one more forward of both."""
+    n_matmul = cfg.param_count() - cfg.vocab * cfg.d_model
+    pairs = _window_pairs(s, cfg.sliding_window)
+    attn = 4 * b * cfg.n_heads * cfg.hd * pairs * cfg.n_layers
+    tokens = b * s
+    return {"matmul_params": n_matmul, "tokens": tokens, "attention_pairs": pairs,
+            "model_flops": 6 * n_matmul * tokens + 3 * attn,
+            "with_remat_flops": 8 * n_matmul * tokens + 4 * attn,
+            "count": "6 N T + 12 B H hd pairs L (model); 8 N T + 16 B H hd pairs L with "
+                     "remat's recompute"}
+
+
+def _profiled_step(cfg, out, dev) -> dict:
+    """One more training step of ``out``'s state through the driver's
+    `build_lm` and `make_train_step`, under `torch.profiler` (device busy
+    and idle time), split by CUDA events around the loss (the forward),
+    `adamw_update` (the optimizer) and each attention backward call; the
+    backward is what lies between the loss and the optimizer."""
+    import torch
+
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.kernels import flash_attn
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw
+
+    mesh = _card_mesh((1, 1), ("data", "model"), dev)
+    loss_fn, make_batch, _ = train_cli.build_lm(cfg, mesh, rules_for_mesh(mesh),
+                                                batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in make_batch(FULL_STEPS).items()}
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    bwd_pairs = []
+    real_bwd, real_update = flash_attn.flash_attention_bwd, train_cli.adamw_update
+
+    def between(i, fn):
+        def timed(*a, **k):
+            events[i].record()
+            r = fn(*a, **k)
+            events[i + 1].record()
+            return r
+        return timed
+
+    def timed_bwd(*a, **k):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        r = real_bwd(*a, **k)
+        e[1].record()
+        bwd_pairs.append(e)
+        return r
+
+    step = train_cli.make_train_step(between(0, loss_fn), adamw.cosine_schedule(
+        FULL_LR, warmup=1, total=FULL_STEPS))
+    flash_attn.flash_attention_bwd, train_cli.adamw_update = timed_bwd, between(2, real_update)
+    try:
+        prof = _device_profile(lambda: step(out["params"], out["opt"], None, batch))
+    finally:
+        flash_attn.flash_attention_bwd, train_cli.adamw_update = real_bwd, real_update
+    torch.cuda.synchronize()
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+    attn_bwd = sum(a.elapsed_time(b) for a, b in bwd_pairs)
+    rows, busy, wall = prof["rows"], prof["device_busy_s"], prof["wall_s"]
+    return {"forward_ms": ms[0], "backward_ms": ms[1], "optimizer_ms": ms[2],
+            "attention_backward_ms": attn_bwd, "attention_backward_calls": len(bwd_pairs),
+            "wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall if busy else "not measured",
+            "top": [{"kernel": k[:120], "s": d, "calls": c} for k, d, c in rows[:12]]}
+
+
+def _train_full(ctx, cfg, dev="cuda") -> None:
+    """h2o-danube-1.8b at full width and depth, bfloat16 parameters, float32
+    moments, remat "nothing": 6 steps of 2 x 8,192 tokens through
+    `launch.train.train` (the first is warm-up), then one profiled step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    out = train_cli.train(cfg, steps=FULL_STEPS, batch=FULL_BATCH, seq=FULL_SEQ, lr=FULL_LR,
+                          device=dev)
+    run_s = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ctx.setdefault("paths", {})["train"] = {"flash_attention": launches["flash_attention"]}
+    losses = [h["loss"] for h in out["history"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses {losses}")
+    if launches["flash_attention"] != 2 * cfg.n_layers * FULL_STEPS:
+        raise AssertionError(f"{launches} for {FULL_STEPS} steps of {cfg.n_layers} layers "
+                             "(forward and remat's recompute)")
+    step_s = [h["dt"] for h in out["history"]]
+    steps = np.array(step_s[1:])  # the first step is warm-up
+    p50 = float(np.quantile(steps, 0.5))
+    flops = _model_flops(cfg, FULL_BATCH, FULL_SEQ)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _named_leaves(
+        {"p": out["params"], "m": out["opt"].m, "v": out["opt"].v}))
+    profile = _profiled_step(cfg, out, dev)
+    del out
+    torch.cuda.empty_cache()
+    emit("train.full", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, window=cfg.sliding_window, dtype=cfg.dtype,
+         opt_dtype=cfg.opt_dtype, remat=cfg.remat, remat_policy=cfg.remat_policy,
+         params=cfg.param_count(), batch=FULL_BATCH, seq=FULL_SEQ, steps=FULL_STEPS,
+         lr=FULL_LR, losses=losses, step_s=step_s,
+         step_s_p50=p50, step_s_max=float(steps.max()), run_s=run_s,
+         tokens_per_s=FULL_BATCH * FULL_SEQ / p50, **flops,
+         model_flops_per_s=flops["model_flops"] / p50,
+         mfu_bf16=flops["model_flops"] / p50 / BF16_OPS_PER_S,
+         with_remat_share=flops["with_remat_flops"] / p50 / BF16_OPS_PER_S,
+         flash_attention_launches=launches["flash_attention"],
+         flash_attention_launches_per_step=launches["flash_attention"] // FULL_STEPS,
+         state_bytes=state_bytes, max_memory_allocated=peak, profile=profile,
+         nvidia_smi=ctx["smi"])
+
+
+def _train_resume(ctx, cfg_full, dev="cuda") -> None:
+    """Full width, 2 layers: two straight runs of 8 steps give the same bytes;
+    a run that fails before step 5 and resumes from step 4's checkpoint
+    gives the straight run's bytes (parameters, both moments, step)."""
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train as train_cli
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    kw = dict(steps=RESUME_STEPS, batch=RESUME_BATCH, seq=RESUME_SEQ, device=dev,
+              ckpt_every=RESUME_EVERY)
+    d = os.path.join(OUT, "train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    straight = train_cli.train(cfg, **kw)
+    again = train_cli.train(cfg, **kw)
+    differ = _differing_leaves(straight, again)
+    if differ:
+        raise AssertionError(f"two straight runs differ in {differ[:5]}")
+    del again
+    try:
+        train_cli.train(cfg, ckpt_dir=d, fail_at_step=RESUME_FAIL, **kw)
+        raise AssertionError("the injected failure did not fire")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    latest = ckpt.latest_step(d)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    resumed = train_cli.train(cfg, ckpt_dir=d, **kw)
+    resume_run_s = time.monotonic() - t0
+    differ = _differing_leaves(straight, resumed)
+    if differ or latest != RESUME_EVERY or resumed["history"][0]["step"] != RESUME_EVERY:
+        raise AssertionError(f"resume from step {latest}: leaves differ {differ[:5]}")
+    if [h["loss"] for h in resumed["history"]] != [h["loss"] for h in
+                                                   straight["history"][RESUME_EVERY:]]:
+        raise AssertionError("the resumed run's losses are not the straight run's")
+    tree = {"params": resumed["params"], "opt": resumed["opt"], "ef": resumed["ef"]}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ckpt.save(d, 99, tree)
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    back = ckpt.restore(d, 99, tree, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    if _differing_leaves(resumed, back):
+        raise AssertionError("a saved and restored state differs")
+    n_bytes = sum(os.path.getsize(os.path.join(d, "step_00000099", f))
+                  for f in os.listdir(os.path.join(d, "step_00000099")))
+    del straight, resumed, back, tree
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit("train.resume", arch=cfg.name, layers=cfg.n_layers, tokens=[RESUME_BATCH, RESUME_SEQ],
+         steps=RESUME_STEPS, fail_at_step=RESUME_FAIL, resumed_from=latest,
+         straight_runs_equal=True, resume_equal=True, checkpoint_bytes=n_bytes,
+         save_s=save_s, restore_s=restore_s, resume_run_s=resume_run_s,
+         nvidia_smi=ctx["smi"])
+
+
+def _train_compress(ctx, cfg_full, dev="cuda") -> None:
+    """``--grad-compress topk`` and ``sign``, 4 steps at 2 layers, twice
+    each: finite losses, a residual that is not zero, the same bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    kw = dict(steps=4, batch=RESUME_BATCH, seq=RESUME_SEQ, device=dev)
+    lines = {}
+    for kind in ("topk", "sign"):
+        t0 = time.monotonic()
+        a = train_cli.train(cfg, grad_compress=kind, **kw)
+        run_s = time.monotonic() - t0
+        b = train_cli.train(cfg, grad_compress=kind, **kw)
+        losses = [h["loss"] for h in a["history"]]
+        resid = sum(float(r.abs().sum()) for _, r in _named_leaves(a["ef"].residual))
+        differ = _differing_leaves(a, b)
+        if differ or not np.isfinite(losses).all() or not resid > 0:
+            raise AssertionError(f"{kind}: differ {differ[:5]}, losses {losses}, "
+                                 f"residual {resid}")
+        lines[kind] = {"losses": losses, "residual_l1": resid, "run_s": run_s,
+                       "residual_bytes": sum(r.numel() * 4 for _, r in
+                                             _named_leaves(a["ef"].residual)),
+                       "two_runs_equal": True}
+        del a, b
+        torch.cuda.empty_cache()
+    emit("train.compress", arch=cfg.name, layers=cfg.n_layers, steps=4,
+         tokens=[RESUME_BATCH, RESUME_SEQ], **lines, nvidia_smi=ctx["smi"])
+
+
+def _moe_train_ctx(cfg, tokens):
+    def build(dev):
+        from repro_torch.distributed.sharding import rules_for_mesh
+        from repro_torch.models import transformer as tfm
+
+        mesh = _card_mesh((1, 1), ("data", "model"), dev)
+        return tfm.make_context(cfg, mesh, rules_for_mesh(mesh), tokens_per_shard=tokens)
+
+    return build
+
+
+def _train_moe(ctx, dev="cuda", cfg=None) -> None:
+    """qwen3-moe-30b-a3b at full width, 2 layers, bfloat16: the card's loss
+    and gradients against the CPU's at 2 x 256 tokens (routing flips only at
+    near-ties), then 3 training steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(cfg or get_config(MOE_ARCH), n_layers=2)
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = synthetic.make_lm_batch(batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ,
+                                    vocab=cfg.vocab, seed=0)
+    routes = {"cpu": [], "card": []}
+    real = moe.router_topk
+    results = {}
+    try:
+        for where, dev_ in (("cpu", "cpu"), ("card", dev)):
+            def recording(logits, k, where=where):
+                probs, w, ids = real(logits, k)
+                routes[where].append((probs.detach().float().cpu(), ids.cpu()))
+                return probs, w, ids
+
+            moe.router_topk = recording
+            t0 = time.monotonic()
+            results[where] = _grads_of(cfg, _tree_to(params, dev_), batch, dev_,
+                                       _moe_train_ctx(cfg, tokens))
+            results[where + "_s"] = time.monotonic() - t0
+    finally:
+        moe.router_topk = real
+    # the forward's router calls (remat's recompute repeats them)
+    n_fwd = cfg.n_layers
+    flips = _route_flips(routes["cpu"][:n_fwd], routes["card"][:n_fwd], n_fwd)
+    check = _compare_grads(results["card"][1], results["cpu"][1], GRAD_REL, GRAD_COS,
+                           routed_limits=(MOE_GRAD_REL, MOE_GRAD_COS))
+    loss_diff = abs(results["card"][0] - results["cpu"][0])
+    if loss_diff > LM_TOL or check["failures"]:
+        raise AssertionError(f"MoE card vs CPU: loss diff {loss_diff}; {check['failures']}; "
+                             f"flips {flips}")
+    del results["card"], results["cpu"], params
+    kept = []
+    real_dispatch, moe._dispatch = _counting_dispatch(kept)
+    try:
+        out = train_cli.train(cfg, steps=3, batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+                              device=dev)
+    finally:
+        moe._dispatch = real_dispatch
+    routed = len(kept) * tokens * cfg.top_k
+    dropped = 1.0 - float(torch.stack(kept).sum()) / routed
+    losses = [h["loss"] for h in out["history"]]
+    step_s = [h["dt"] for h in out["history"]]
+    del out
+    torch.cuda.empty_cache()
+    emit("train.moe", arch=cfg.name, layers=cfg.n_layers, tokens=[MOE_TRAIN_BATCH,
+                                                                 MOE_TRAIN_SEQ],
+         capacity=moe.capacity_for(tokens, cfg.top_k, cfg.n_experts, cfg.capacity_factor),
+         loss_abs_diff=loss_diff, rel_l2_limit=GRAD_REL, cos_limit=GRAD_COS,
+         routed_leaves=MOE_ROUTED, routed_rel_l2_limit=MOE_GRAD_REL,
+         routed_cos_limit=MOE_GRAD_COS,
+         leaves=check["leaves"], router_margin_nats=ROUTER_MARGIN,
+         routing_flips=sum(f["flipped_tokens"] for f in flips),
+         routed_tokens=sum(f["tokens"] for f in flips),
+         flips_by_call=[f for f in flips if f["flipped_tokens"]],
+         cpu_s=results["cpu_s"], card_s=results["card_s"], losses=losses,
+         step_s=step_s, dropped_share=dropped, routed_pairs=routed,
+         nvidia_smi=ctx["smi"])
+
+
+def _recsys_run(cfg, dev, params=None) -> dict:
+    """15 steps of the driver's recsys step (`launch.train`'s
+    ``build_recsys`` and ``make_train_step``) from ``params`` (seeded on
+    ``dev`` when None)."""
+    import torch
+
+    from repro_torch.data.loader import ShardedBatchLoader
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+
+    mesh = _card_mesh((1, 1), ("data", "model"), dev)
+    loss_fn, make_batch, init = train_cli.build_recsys(cfg, mesh, None, batch=RECSYS_BATCH,
+                                                       seed=0)
+    if params is None:
+        params = init(torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw.adamw_init(params)
+    step = train_cli.make_train_step(loss_fn, adamw.cosine_schedule(
+        RECSYS_LR, warmup=max(RECSYS_STEPS // 10, 1), total=RECSYS_STEPS))
+    loader = ShardedBatchLoader(mesh, ("data",), make_batch)
+    losses, dts = [], []
+    try:
+        for i in range(RECSYS_STEPS):
+            b = loader.get(i)
+            t0 = time.monotonic()
+            params, opt, _, metrics = step(params, opt, None, b)
+            losses.append(float(metrics["loss"]))
+            dts.append(time.monotonic() - t0)
+    finally:
+        loader.close()
+    n = sum(t.numel() for _, t in _named_leaves(params))
+    return {"losses": losses, "step_s": dts, "params": n, "state": params}
+
+
+def _train_recsys(ctx, dev="cuda", config=None) -> None:
+    """The four recsys archs at their full published widths, 15 steps of 32
+    at lr 3e-3 (the reference test's setting) on the card; then the reduced
+    configs on the card and the CPU from the same weights, losses within
+    RECSYS_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import recsys
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the float32 recsys steps would not hold to the CPU's")
+    lines = {}
+    for arch in RECSYS_ARCHS:
+        cfg = (config or get_config)(arch)
+        torch.cuda.reset_peak_memory_stats()
+        full = _recsys_run(cfg, dev)
+        peak = torch.cuda.max_memory_allocated()
+        del full["state"]
+        torch.cuda.empty_cache()
+        if not np.isfinite(full["losses"]).all():
+            raise AssertionError(f"{arch}: non-finite losses {full['losses']}")
+        if arch == "dcn-v2" and not full["losses"][-1] < full["losses"][0]:
+            raise AssertionError(f"dcn-v2's loss does not fall: {full['losses']}")
+        p50 = float(np.quantile(full["step_s"][1:], 0.5))
+        small = reduced_config(arch)
+        seed = recsys.init_params(small, torch.Generator().manual_seed(0))
+        cpu = _recsys_run(small, "cpu", _tree_to(seed, "cpu"))
+        card = _recsys_run(small, dev, _tree_to(seed, dev))
+        diff = float(np.abs(np.array(card["losses"]) - np.array(cpu["losses"])).max())
+        if diff > RECSYS_TOL:
+            raise AssertionError(f"{arch} reduced: card vs CPU losses differ by {diff}")
+        lines[arch] = {"params": full["params"], "losses": full["losses"],
+                       "loss_falls": full["losses"][-1] < full["losses"][0],
+                       "step_s_p50": p50, "rows_per_s": RECSYS_BATCH / p50,
+                       "max_memory_allocated": peak, "reduced_card_vs_cpu": diff}
+    emit("train.recsys", steps=RECSYS_STEPS, batch=RECSYS_BATCH, lr=RECSYS_LR,
+         tol=RECSYS_TOL, **lines, nvidia_smi=ctx["smi"])
+
+
+def _kept_calls(fn, kept: dict, last: bool = False):
+    """``fn`` wrapped to keep a copy of the arguments of its first call
+    (``last``: its latest) at each geometry: the shapes and dtypes of its
+    tensors and its keyword arguments."""
+    import torch
+
+    def kept_fn(*args, **kwargs):
+        key = (tuple((tuple(a.shape), str(a.dtype)) for a in args[:3]),
+               tuple(sorted(kwargs.items())))
+        if last or key not in kept:
+            kept[key] = ([a.detach().clone() if isinstance(a, torch.Tensor) else a
+                          for a in args], kwargs)
+        return fn(*args, **kwargs)
+
+    return kept_fn
+
+
+def _example_lm_card_vs_cpu(lm: dict, params, dev="cuda") -> dict:
+    """The LM example's trained weights on the card and on the CPU: the
+    flash kernels at the example's own calls (float32, hd 64, 8 query heads
+    over 4 KV heads, cap 50, windows 128 and none; a 64-slot decode cache)
+    against their plain versions on the same inputs (FLASH_TOL); one
+    training step's loss and every gradient leaf; the 16 decode steps'
+    logits, both devices fed the card's greedy tokens."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attn, flash_decode, ops
+
+    cfg = lm["cfg_100m"]()
+    on_cpu = _tree_to(params, "cpu")
+    batch = synthetic.make_lm_batch(batch=8, seq_len=256, vocab=cfg.vocab, seed=0, chunk=0)
+    attn_calls, decode_calls = {}, {}
+    real = ops.flash_attention, ops.flash_decode
+    ops.flash_attention = _kept_calls(real[0], attn_calls)
+    ops.flash_decode = _kept_calls(real[1], decode_calls, last=True)
+    try:
+        card_loss, card_grads = _grads_of(cfg, params, batch, dev)
+        card_tokens, card_logits = lm["decode"](cfg, params, dev)
+    finally:
+        ops.flash_attention, ops.flash_decode = real
+    kernels = []
+    for (shapes, kw), (args, kwargs) in attn_calls.items():
+        name = f"example attn {shapes[0][0]} {dict(kw)}"
+        want = flash_attn.flash_attention_ref(
+            *args, **{k: kwargs[k] for k in ("causal", "window", "cap") if k in kwargs})
+        kernels.append({"case": name, **_flash_close(name, real[0](*args, **kwargs), want,
+                                                     args[0].dtype)})
+    for (shapes, kw), (args, kwargs) in decode_calls.items():
+        name = f"example decode {shapes[1][0]} t {int(args[3])} {dict(kw)}"
+        want = flash_decode.flash_decode_ref(
+            *args, **{k: kwargs[k] for k in ("window", "cap") if k in kwargs})
+        kernels.append({"case": name, **_flash_close(name, real[1](*args, **kwargs), want,
+                                                     args[0].dtype)})
+    if len(attn_calls) < 2 or len(decode_calls) < 2:
+        raise AssertionError(f"the example's local and global layers: {len(attn_calls)} "
+                             f"attention and {len(decode_calls)} decode geometries")
+    cpu_loss, cpu_grads = _grads_of(cfg, on_cpu, batch, "cpu")
+    grads = _compare_grads(card_grads, cpu_grads, EXAMPLE_GRAD_REL, EXAMPLE_GRAD_COS)
+    loss_diff = abs(card_loss - cpu_loss)
+    if loss_diff > EXAMPLE_LOSS_TOL or grads["failures"]:
+        raise AssertionError(f"example card vs CPU: loss {card_loss} / {cpu_loss}; "
+                             f"{grads['failures']}")
+    _, cpu_logits = lm["decode"](cfg, on_cpu, "cpu", feed=card_tokens)
+    rtol, atol = FLASH_TOL["float32"]
+    logit_diffs = []
+    for i, (got, want) in enumerate(zip(card_logits, cpu_logits)):
+        torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=atol,
+                                   msg=f"example decode step {i}")
+        logit_diffs.append(float((got.cpu() - want).abs().max()))
+    return {"kernels": kernels, "loss_card": card_loss, "loss_cpu": cpu_loss,
+            "loss_abs_diff": loss_diff, "loss_tol": EXAMPLE_LOSS_TOL,
+            "grad_rel_l2_max": max(r["rel_l2"] for r in grads["leaves"].values()),
+            "grad_cos_min": min(r["cos"] for r in grads["leaves"].values()),
+            "grad_limits": [EXAMPLE_GRAD_REL, EXAMPLE_GRAD_COS],
+            "decode_logits_max_abs_diff": max(logit_diffs), "decode_tol": [rtol, atol],
+            "greedy_tokens": card_tokens}
+
+
+def _train_examples(ctx, dev="cuda") -> None:
+    """``examples/torch_train_lm.py`` (40 steps with a failure injected at
+    25 and the resume, then 16 greedy tokens) and
+    ``examples/torch_candidate_retrieval.py`` (MIND's 8-dim vectors, which
+    the kernel's wrapper pads) on the card, in this process, their launches
+    counted; then the LM example's kernels, loss, gradients and decode held
+    to the plain versions and the CPU (`_example_lm_card_vs_cpu`), and the
+    retrieval's rankings against the CPU's run under the dense near-tie
+    rule."""
+    import runpy
+
+    from _torch_parity import assert_rankings_close
+    from repro_torch.kernels import ops
+
+    ex = os.path.join(ROOT, "examples")
+    d = os.path.join(OUT, "example_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    lm = runpy.run_path(os.path.join(ex, "torch_train_lm.py"))
+    ops.reset_launches()
+    t0 = time.monotonic()
+    summary = lm["main"](["--steps", "40", "--ckpt-every", "10", "--fail-at-step", "25",
+                          "--ckpt-dir", d, "--device", dev])
+    lm_s = time.monotonic() - t0
+    lm_launches = dict(ops.LAUNCHES)
+    shutil.rmtree(d, ignore_errors=True)
+    params = summary.pop("params")
+    if summary["resumed_from"] != 20 or not lm_launches["flash_decode"] \
+            or not lm_launches["flash_attention"]:
+        raise AssertionError(f"torch_train_lm: {summary}, launches {lm_launches}")
+    t0 = time.monotonic()
+    lm_check = _example_lm_card_vs_cpu(lm, params, dev)
+    lm_check_s = time.monotonic() - t0
+    del params
+    cr = runpy.run_path(os.path.join(ex, "torch_candidate_retrieval.py"))
+    ops.reset_launches()
+    t0 = time.monotonic()
+    card = cr["main"](["--device", dev])
+    cr_s = time.monotonic() - t0
+    cr_launches = dict(ops.LAUNCHES)
+    cpu = cr["main"](["--device", "cpu"])
+    if not cr_launches["score_topk"]:
+        raise AssertionError(f"torch_candidate_retrieval launched {cr_launches}")
+    assert_rankings_close(card["first_interest"]["scores"], card["first_interest"]["ids"],
+                          cpu["first_interest"]["scores"], cpu["first_interest"]["ids"],
+                          what="first interest")
+    for u, (g, w) in enumerate(zip(card["merged"], cpu["merged"])):
+        assert_rankings_close(g["scores"], g["ids"], w["scores"], w["ids"], what=f"user {u}")
+    ctx.setdefault("paths", {})["train_examples"] = {
+        "flash_attention": lm_launches["flash_attention"],
+        "flash_decode": lm_launches["flash_decode"], "score_topk": cr_launches["score_topk"]}
+    emit("train.examples", train_lm=summary, train_lm_s=lm_s, train_lm_launches=lm_launches,
+         train_lm_card_vs_cpu=lm_check, train_lm_check_s=lm_check_s, retrieval_s=cr_s,
+         retrieval_launches=cr_launches, retrieval_serve_s=card["serve_s"],
+         retrieval_dim=card["dim"], retrieval_rankings_equal_cpu=True, nvidia_smi=ctx["smi"])
+
+
+def phase_train(ctx, dev="cuda", cfg=None) -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+
+    ctx.pop("collection", None)
+    torch.cuda.empty_cache()
+    cfg = cfg or get_config(TRAIN_ARCH)
+    _train_flash_geometry(ctx, cfg, dev)
+    _train_grads(ctx, cfg, dev)
+    _train_full(ctx, cfg, dev)
+    _train_resume(ctx, cfg, dev)
+    _train_compress(ctx, cfg, dev)
+    _train_moe(ctx, dev)
+    _train_recsys(ctx, dev)
+    _train_examples(ctx, dev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -2889,7 +3660,7 @@ def main(argv=None) -> int:
     table = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
              "experiment": phase_experiment, "paper": phase_paper, "tune": phase_tune,
              "resume": phase_resume, "serve": phase_serve, "mesh": phase_mesh, "lm": phase_lm,
-             "lm_moe": phase_lm_moe}
+             "lm_moe": phase_lm_moe, "train": phase_train}
     for p in PHASES:
         if p in only:
             t0 = time.monotonic()

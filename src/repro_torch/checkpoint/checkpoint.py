@@ -60,10 +60,36 @@ def _unflatten(like, leaves):
     return build(like)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+# numpy has no bfloat16 or float8: such a leaf is stored as its bits, an
+# unsigned int of the same width, and the manifest records its true dtype,
+# as the reference stores them (its ``_VIEW_AS``); restore views the bits back
+_VIEW_AS = {"bfloat16": (torch.uint16, np.uint16),
+            "float8_e4m3fn": (torch.uint8, np.uint8),
+            "float8_e5m2": (torch.uint8, np.uint8)}
+_VIEWED = {getattr(torch, name): name for name in _VIEW_AS if hasattr(torch, name)}
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(the array written, the dtype the manifest records)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        name = _VIEWED.get(leaf.dtype)
+        if name is not None:
+            return leaf.view(_VIEW_AS[name][0]).numpy(), name
+        arr = leaf.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+    """A stored leaf as a tensor of the manifest's dtype, bit for bit."""
+    if dtype in _VIEW_AS:
+        if not hasattr(torch, dtype):
+            raise TypeError(f"this torch has no {dtype} to restore a leaf into")
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(_VIEW_AS[dtype][1]))
+        return bits.view(getattr(torch, dtype)).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 class Snapshot:
@@ -130,12 +156,12 @@ def save(ckpt_dir: str, step: int, tree, *, on_commit=None) -> str:
         manifest = []
         written = 0
         for i, (key, leaf) in enumerate(_flatten(tree)):
-            arr = _to_numpy(leaf)
+            arr, true_dtype = _to_numpy(leaf)
             fname = f"leaf_{i:05d}.npy"
             np.save(os.path.join(tmp, fname), arr)
             written += arr.nbytes
             manifest.append(
-                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": true_dtype}
             )
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump({"step": step, "leaves": manifest}, f)
@@ -274,7 +300,9 @@ class AsyncCheckpointer:
 
 def restore(ckpt_dir: str, step: int, tree_like, *, device=None):
     """Load ``step`` into the structure of ``tree_like``, as tensors on
-    ``device`` (default: each template leaf's device, CPU for numpy)."""
+    ``device`` (default: each template leaf's device, CPU for numpy), each of
+    the dtype its manifest records (a bfloat16 leaf's stored bits are viewed
+    back as bfloat16)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -285,9 +313,10 @@ def restore(ckpt_dir: str, step: int, tree_like, *, device=None):
         raise ValueError(f"checkpoint structure mismatch; differing keys: {sorted(missing)[:5]}")
     leaves = []
     for key, like in named:
-        arr = np.load(os.path.join(d, by_key[key]["file"]))
+        meta = by_key[key]
+        arr = np.load(os.path.join(d, meta["file"]))
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu"
         )
-        leaves.append(torch.as_tensor(arr, device=dev))
+        leaves.append(_from_numpy(arr, meta["dtype"], dev))
     return _unflatten(tree_like, leaves)

@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config`` and ``reduced_config``.
 
 The port holds the paper's own system, ``mirex`` (what `launch.serve`
-reads in search mode), and the LMs of `repro.configs`: the dense
-``gemma2-2b``, ``gemma2-27b`` and ``h2o-danube-1.8b`` and the MoE
-``qwen3-moe-30b-a3b`` and ``dbrx-132b`` (LM serving). The GNN and the
-recsys models wait for their slices; asking for one raises
+reads in search mode), the LMs of `repro.configs` (the dense ``gemma2-2b``,
+``gemma2-27b`` and ``h2o-danube-1.8b`` and the MoE ``qwen3-moe-30b-a3b`` and
+``dbrx-132b``) and the recsys models ``fm``, ``dcn-v2``, ``mind`` and
+``sasrec``. The GNN (``pna``) waits for its slice; asking for it raises
 ``NotImplementedError``.
 """
 
@@ -14,13 +14,17 @@ import dataclasses
 
 from repro_torch.configs.archs import (
     dbrx_132b,
+    dcn_v2,
+    fm,
     gemma2_2b,
     gemma2_27b,
     h2o_danube_1_8b,
+    mind,
     mirex,
     qwen3_moe_30b_a3b,
+    sasrec,
 )
-from repro_torch.configs.base import MirexConfig, TransformerConfig
+from repro_torch.configs.base import MirexConfig, RecsysConfig, TransformerConfig
 
 _MODULES = {
     "dbrx-132b": dbrx_132b,
@@ -28,17 +32,18 @@ _MODULES = {
     "h2o-danube-1.8b": h2o_danube_1_8b,
     "gemma2-27b": gemma2_27b,
     "gemma2-2b": gemma2_2b,
+    "dcn-v2": dcn_v2,
+    "fm": fm,
+    "mind": mind,
+    "sasrec": sasrec,
     "mirex": mirex,
 }
-_LATER_SLICES = {
-    "pna": "GNN",
-    "dcn-v2": "recsys", "fm": "recsys", "mind": "recsys", "sasrec": "recsys",
-}
+_LATER_SLICES = {"pna": "GNN"}
 
 ARCH_IDS = tuple(_MODULES)
 
 
-def get_config(arch: str) -> MirexConfig | TransformerConfig:
+def get_config(arch: str) -> MirexConfig | TransformerConfig | RecsysConfig:
     if arch in _LATER_SLICES:
         raise NotImplementedError(
             f"the {arch!r} config waits for the {_LATER_SLICES[arch]} slice of the port")
@@ -48,10 +53,10 @@ def get_config(arch: str) -> MirexConfig | TransformerConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}") from None
 
 
-def reduced_config(arch: str) -> MirexConfig | TransformerConfig:
+def reduced_config(arch: str) -> MirexConfig | TransformerConfig | RecsysConfig:
     """Tiny same-family config for CPU smoke tests, as `repro.configs`
-    reduces it: same structure (window pattern, soft caps, GQA), reduced
-    dims."""
+    reduces it: same structure (window pattern, soft caps, GQA, MoE-ness,
+    interaction type), reduced dims."""
     cfg = get_config(arch)
     if isinstance(cfg, TransformerConfig):
         return dataclasses.replace(
@@ -71,5 +76,14 @@ def reduced_config(arch: str) -> MirexConfig | TransformerConfig:
             grad_accum=1,
             opt_dtype="float32",
             q_block=16,
+        )
+    if isinstance(cfg, RecsysConfig):
+        return dataclasses.replace(
+            cfg,
+            embed_dim=8,
+            vocab_per_field=64,
+            n_items=128,
+            mlp_dims=(32, 16) if cfg.mlp_dims else (),
+            seq_len=12 if cfg.seq_len else 0,
         )
     return dataclasses.replace(cfg, vocab=512, k=16, chunk_size=64, max_doc_len=32, dense_dim=32)

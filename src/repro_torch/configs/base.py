@@ -1,8 +1,8 @@
 """Config dataclasses of the port: the paper's own system, ``MirexConfig``,
-and the decoder-only LM, ``TransformerConfig`` (copies of
-`repro.configs.base`).
+the decoder-only LM, ``TransformerConfig``, and the recsys models,
+``RecsysConfig`` (copies of `repro.configs.base`).
 
-The GNN and recsys configs wait for the GNN and recsys slices of the port.
+The GNN config waits for the GNN slice of the port.
 """
 
 from __future__ import annotations
@@ -80,3 +80,27 @@ class TransformerConfig:
         ffn = 3 * d * f * self.top_k
         per_layer = attn + ffn + d * self.n_experts + 2 * d
         return v * d * 2 + self.n_layers * per_layer + d
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    """Sparse-embedding + feature-interaction ranking/retrieval model."""
+
+    name: str
+    variant: str  # dcn-v2 | fm | mind | sasrec
+    embed_dim: int
+    n_dense: int = 0
+    n_sparse: int = 0
+    vocab_per_field: int = 1_000_000
+    # dcn-v2
+    n_cross_layers: int = 0
+    mlp_dims: tuple[int, ...] = ()
+    # mind
+    n_interests: int = 0
+    capsule_iters: int = 0
+    # sasrec
+    n_blocks: int = 0
+    n_heads: int = 0
+    seq_len: int = 0
+    n_items: int = 3_000_000
+    dtype: str = "float32"

@@ -4,8 +4,11 @@ The reference keeps collection statistics, top-k states, epilogue specs and
 dense vectors, LM parameters and KV caches as arrays; ``np.asarray`` of
 them gives numpy arrays, and these functions turn those into the port's
 tensors on a given device, dtypes unchanged.
-(Checkpoints need no conversion: both packages write the same on-disk
-layout, see `repro_torch.checkpoint`.)
+The training state comes across the same way: recsys parameters
+(:func:`tree_from_numpy`), an ``AdamWState`` (:func:`adamw_from_numpy`) and
+an ``ErrorFeedbackState`` (:func:`ef_from_numpy`), so that both packages
+start a step from the same numbers. (Checkpoints need no conversion: both
+packages write the same on-disk layout, see `repro_torch.checkpoint`.)
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import torch
 
 from repro_torch.core.scoring import CollectionStats, EpilogueMode
 from repro_torch.core.topk import TopKState
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.compress import ErrorFeedbackState
 
 
 def _t(x, device) -> torch.Tensor:
@@ -84,3 +89,22 @@ def cache_from_numpy(cache, device="cpu") -> dict:
     """The reference's KV cache ``{"k", "v"}`` of ``[L,B,S,KV,hd]`` arrays
     -> the port's, on ``device``, bfloat16 bit for bit."""
     return _tree(cache, device)
+
+
+def tree_from_numpy(tree, device="cpu") -> dict:
+    """Any nested dict of float32 or bfloat16 arrays (recsys parameters,
+    gradients) -> the same dict of tensors on ``device``, bit for bit."""
+    return _tree(tree, device)
+
+
+def adamw_from_numpy(state, device="cpu"):
+    """The reference's ``AdamWState(step, m, v)`` of numpy arrays -> the
+    port's `repro_torch.optim.AdamWState` (``step`` a 0-d int32 tensor)."""
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                        device=device),
+                      m=_tree(state.m, device), v=_tree(state.v, device))
+
+
+def ef_from_numpy(state, device="cpu"):
+    """The reference's ``ErrorFeedbackState(residual)`` -> the port's."""
+    return ErrorFeedbackState(residual=_tree(state.residual, device))

@@ -16,10 +16,11 @@ seconds instead of minutes:
   unless a tie makes the order depend on the sort (then the full sort runs).
 
 :func:`make_dense_corpus` and :func:`make_lm_batch` are the reference's
-numpy code as it is. :func:`make_links` (the anchor job's link graph) draws
-its destinations through the same replayed ``choice`` and fills its anchor
-rows by one masked assignment. The graph and recsys generators wait for the
-slices that use them.
+numpy code as it is, and so are the recsys batches (:func:`make_recsys_batch`,
+:func:`make_item_sequences`). :func:`make_links` (the anchor job's link
+graph) draws its destinations through the same replayed ``choice`` and
+fills its anchor rows by one masked assignment. The graph generator waits
+for the GNN slice.
 """
 
 from __future__ import annotations
@@ -228,3 +229,44 @@ def make_lm_batch(
         "tokens": tokens[:, :-1].astype(np.int32),
         "labels": tokens[:, 1:].astype(np.int32),
     }
+
+
+def make_recsys_batch(
+    *,
+    batch: int,
+    n_dense: int,
+    n_sparse: int,
+    vocab_per_field: int,
+    seed: int = 0,
+    chunk: int = 0,
+) -> dict[str, np.ndarray]:
+    """A click batch keyed by (seed, chunk), byte for byte the reference's:
+    ``dense [B, n_dense]`` float32, ``sparse_ids [B, n_sparse]`` int32 and
+    ``labels [B]`` float32 from a fixed linear teacher over the dense
+    features plus a per-field id-parity term (learnable, not coin flips)."""
+    rng = np.random.default_rng((seed, chunk))
+    dense = (
+        rng.standard_normal((batch, n_dense)).astype(np.float32)
+        if n_dense
+        else np.zeros((batch, 0), np.float32)
+    )
+    sparse_ids = rng.integers(0, vocab_per_field, size=(batch, n_sparse), dtype=np.int32)
+    logit = dense @ np.linspace(-1.0, 1.0, n_dense) if n_dense else np.zeros(batch)
+    if n_sparse:
+        logit = logit + 0.5 * ((sparse_ids[:, 0] % 2) * 2 - 1)
+    return {
+        "dense": dense,
+        "sparse_ids": sparse_ids,
+        "labels": (logit > 0).astype(np.float32),
+    }
+
+
+def make_item_sequences(
+    *, batch: int, seq_len: int, n_items: int, seed: int = 0, chunk: int = 0
+) -> dict[str, np.ndarray]:
+    """Item histories keyed by (seed, chunk), byte for byte the reference's:
+    ``history [B, S]`` and the next items ``target [B, S]``, int32 in
+    ``1..n_items-1``."""
+    rng = np.random.default_rng((seed, chunk))
+    seq = rng.integers(1, n_items, size=(batch, seq_len + 1), dtype=np.int32)
+    return {"history": seq[:, :-1], "target": seq[:, 1:]}

@@ -20,6 +20,15 @@ Two versions of one function, ``q [B,S,H,hd]``, ``k``/``v [B,S,KV,hd]`` ->
   ``block_k``); float32 on the CUDA cores.
 
 `repro_torch.kernels.ops.flash_attention` picks one by the tensors' device.
+
+:func:`flash_attention_bwd` is the gradient of that function, in torch ops on
+either device: the reference trains through ``chunked_attention``, which XLA
+differentiates, and no Pallas kernel computes a gradient, so neither does a
+kernel here. It recomputes one query block's scores at a time over the
+keys that block can see (the causal and window band), so no ``[B,H,S,S]``
+tensor is ever alive, and accumulates ``dk``/``dv`` over the blocks.
+`ops.flash_attention_train` is the autograd function that joins the kernel's
+forward to it.
 """
 
 from __future__ import annotations
@@ -75,6 +84,79 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int | None = No
         o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
         out[:, a : a + ROW_CHUNK] = o.reshape(b, -1, h, hd).to(q.dtype)
     return out
+
+
+def _mm_f32(a, b) -> torch.Tensor:
+    """Batched ``a @ b`` with a float32 result: bfloat16 operands on the
+    card's tensor cores (float32 accumulation), float32 operands as they
+    are, and on the CPU in float32 (bfloat16 products are exact there)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int | None = None,
+                        cap: float | None = None, block: int = 512):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref`'s function
+    at ``q [B,S,H,hd]``, ``k``/``v [B,S,KV,hd]`` for the output cotangent
+    ``do [B,S,H,hd]``, each in its input's dtype.
+
+    ``block`` query rows at a time: their float32 scores over the band of
+    keys they can see (causal: up to the block's last row; window: from
+    its first row's earliest key) are recomputed, soft-capped and masked as
+    in the forward, then the softmax's backward. The products take the
+    inputs' dtype as operands and accumulate in float32 (bfloat16 on the
+    tensor cores, the reference's operand dtype); probabilities and score
+    gradients are rounded to that dtype before their products, as the
+    forward rounds the probabilities before P.V. GQA: the ``H / KV`` query
+    heads of a KV head are one batch of rows against it, so its ``dk``/
+    ``dv`` sum over the group inside the products.
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    dt = q.dtype
+    scale = hd ** -0.5
+    # [B*KV, g, S, hd] views of the query side, [B*KV, S, hd] of the key side
+    qg = q.reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4).reshape(b * kv, g, s, hd)
+    dog = do.reshape(b, s, kv, g, hd).permute(0, 2, 3, 1, 4).reshape(b * kv, g, s, hd)
+    kt = k.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
+    vt = v.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b * kv, s, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    neg = torch.full((), NEG, device=q.device)
+    for a in range(0, s, block):
+        e = min(a + block, s)
+        lo = 0 if window is None else max(0, a + 1 - window)
+        hi = e if causal else s
+        rows = g * (e - a)
+        qb = qg[:, :, a:e].reshape(b * kv, rows, hd)
+        dob = dog[:, :, a:e].reshape(b * kv, rows, hd)
+        kb, vb = kt[:, lo:hi], vt[:, lo:hi]
+        sc = _mm_f32(qb, kb.transpose(1, 2)).mul_(scale)  # [B*KV, g*bq, n]
+        t = None
+        if cap is not None:
+            t = torch.tanh(sc / cap)
+            sc = t * cap
+        ok = _allowed(torch.arange(a, e, device=q.device), torch.arange(lo, hi, device=q.device),
+                      causal, window)
+        sc = torch.where(ok, sc.view(b * kv, g, e - a, hi - lo), neg).view(b * kv, rows, -1)
+        p = torch.softmax(sc, dim=-1)
+        del sc
+        dv[:, lo:hi] += _mm_f32(p.to(dt).transpose(1, 2), dob)
+        ds = _mm_f32(dob, vb.transpose(1, 2))  # dP, float32
+        ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)
+        del p
+        if t is not None:
+            ds.mul_(1.0 - t * t)
+            del t
+        ds = ds.mul_(scale).to(dt)
+        dq[:, a:e] = _mm_f32(ds, kb).view(b, kv, g, e - a, hd).permute(0, 3, 1, 2, 4).reshape(
+            b, e - a, h, hd).to(dt)
+        dk[:, lo:hi] += _mm_f32(ds.transpose(1, 2), qb)
+    back = lambda x: x.view(b, kv, s, hd).permute(0, 2, 1, 3).to(dt).contiguous()
+    return dq, back(dk), back(dv)
 
 
 def route(dtype, hd: int) -> str:

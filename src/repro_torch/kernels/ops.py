@@ -191,6 +191,37 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward is that call
+    (the CUDA kernel on the card, counted in ``LAUNCHES``; the plain version
+    on the CPU), the backward `flash_attn.flash_attention_bwd` in torch ops
+    on either device, one query block at a time. ``q``, ``k`` and ``v`` are
+    saved, not the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, block_q, block_k, bwd_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = {"causal": causal, "window": window, "cap": cap, "block": bwd_block}
+        return flash_attention(q, k, v, causal=causal, window=window, cap=cap,
+                               block_q=block_q, block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _flash.flash_attention_bwd(q, k, v, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True, window: int | None = None,
+                          cap: float | None = None, block_q: int | None = None,
+                          block_k: int | None = None, bwd_block: int = 512):
+    """:func:`flash_attention` under autograd: the same forward (the same
+    bits as serving's call), and a gradient that recomputes ``bwd_block``
+    query rows at a time (`flash_attn.flash_attention_bwd`). The models call
+    this; the bare :func:`flash_attention` has no gradient on the card."""
+    return _FlashAttention.apply(q, k, v, causal, window, cap, block_q, block_k, bwd_block)
+
+
 def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
                  cap: float | None = None, block_s: int | None = None):
     """Split-KV single-token decode. ``q [B,H,hd]``, caches ``[B,S,KV,hd]``

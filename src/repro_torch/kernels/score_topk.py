@@ -304,8 +304,16 @@ def score_topk_cuda(q: torch.Tensor, d: torch.Tensor, *, k: int,
                     block_d: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on contiguous CUDA tensors (checked by the
     caller) -> ``(scores, ids) [n_q, k]``. Raises on any build or launch
-    error, and on sizes the kernel cannot take."""
+    error, and on sizes the kernel cannot take.
+
+    The kernel stages rows ``STAGE_BYTES`` at a time: rows of another width
+    are zero-padded to the next multiple here (a copy of ``q`` and ``d``
+    each call), which leaves every dot product as it is."""
     _check_args(q, d, k, block_d)
+    row = STAGE_BYTES // d.element_size()
+    if q.shape[1] % row:
+        pad = (0, -q.shape[1] % row)
+        q, d = torch.nn.functional.pad(q, pad), torch.nn.functional.pad(d, pad)
     n_q, dim = q.shape
     n_d = d.shape[0]
     dev = d.device

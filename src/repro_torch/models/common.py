@@ -19,16 +19,35 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, *, one_plus: bool = False, eps: f
     return (x * scale).to(dtype)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x2 [N, D] @ w [D, M]`` with a float32 result. The backward takes the
+    float32 cotangent in the operands' dtype: bfloat16 products with float32
+    accumulation on the card's tensor cores (the reference's products stay in
+    bfloat16 too; float32 operands stay float32)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        if x2.is_cuda and x2.dtype == torch.bfloat16:
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return x2.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., D] @ w [D, N]`` with a float32 result: bfloat16 products
     are exact in float32, so both paths accumulate the same products in
-    float32 (the reference's ``preferred_element_type=f32``)."""
+    float32 (the reference's ``preferred_element_type=f32``).
+    Differentiable (:class:`_MatmulF32`)."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w.float()
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
 
 

@@ -1,0 +1,142 @@
+"""Embedding lookups (the port's copy of `repro.models.embedding`): the
+per-field lookup, the padded and ragged bags, and the vocab-sharded lookup.
+
+Indices follow JAX's rules, where the reference indexes bare: a negative id
+wraps once (``-1`` is the last row) and an id past either end is clamped to
+it; torch raises on the CPU and asserts on a card for those, so
+:func:`jax_index` maps every id to the row JAX reads first. Gathers whose
+gradient is a scatter go through ``F.embedding``, whose backward on the
+card sorts instead of adding atomically, so a training step gives the same
+bits every run.
+
+``make_sharded_field_embed`` runs the reference's ``shard_map`` the way
+`repro_torch.models.moe.make_moe_layer` does: it takes the whole table and
+ids, gives each shard its rows of the table (over ``tp``) and of the batch
+(over the batch axes) on its mesh device, and sums the ``tp`` partials left
+to right on the first shard's device (the ``psum``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def jax_index(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The row JAX's indexing reads for ``ids`` into ``n`` rows: negative
+    ids wrap once, then every id is clamped into ``[0, n)``."""
+    ids = torch.where(ids < 0, ids + n, ids)
+    return ids.clamp(0, n - 1)
+
+
+def field_embed(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Per-field lookup. tables [F, V, D], ids [B, F] -> [B, F, D]."""
+    f, v, d = tables.shape
+    rows = jax_index(ids.long(), v) + v * torch.arange(f, device=ids.device)
+    return F.embedding(rows, tables.reshape(f * v, d))
+
+
+def embedding_bag(
+    table: torch.Tensor,  # [V, D]
+    ids: torch.Tensor,  # [B, L]
+    *,
+    mode: str = "mean",
+    mask: torch.Tensor | None = None,  # [B, L] bool; default: ids >= 0
+    weights: torch.Tensor | None = None,  # [B, L] per-sample weights
+) -> torch.Tensor:
+    """Padded-bag EmbeddingBag: gather + masked reduce -> [B, D]."""
+    if mask is None:
+        mask = ids >= 0
+    e = F.embedding(ids.long().clamp(0, table.shape[0] - 1), table)  # [B, L, D]
+    w = mask.to(e.dtype)
+    if weights is not None:
+        w = w * weights.to(e.dtype)
+    e = e * w[..., None]
+    if mode == "sum":
+        return e.sum(1)
+    if mode == "mean":
+        return e.sum(1) / torch.clamp(w.sum(1, keepdim=True), min=1.0)
+    if mode == "max":
+        neg = torch.finfo(e.dtype).min
+        return torch.amax(torch.where(mask[..., None], e, neg), dim=1)
+    raise ValueError(mode)
+
+
+def embedding_bag_ragged(
+    table: torch.Tensor,  # [V, D]
+    values: torch.Tensor,  # [nnz] ids
+    segment_ids: torch.Tensor,  # [nnz] bag index, sorted
+    num_bags: int,
+    *,
+    mode: str = "sum",
+) -> torch.Tensor:
+    """Ragged EmbeddingBag via a segment reduce -> [num_bags, D]; a segment
+    id outside ``[0, num_bags)`` is dropped, an empty bag is 0 (``sum``,
+    ``mean``) or -inf (``max``), as ``jax.ops.segment_*`` give them."""
+    e = F.embedding(jax_index(values.long(), table.shape[0]), table)
+    seg = segment_ids.long()
+    keep = (seg >= 0) & (seg < num_bags)
+    e, seg = e[keep], seg[keep]
+    d = table.shape[1]
+    if mode in ("sum", "mean"):
+        s = torch.zeros((num_bags, d), dtype=e.dtype, device=e.device).index_add_(0, seg, e)
+        if mode == "sum":
+            return s
+        n = torch.zeros((num_bags,), dtype=e.dtype, device=e.device).index_add_(
+            0, seg, torch.ones_like(seg, dtype=e.dtype))
+        return s / torch.clamp(n, min=1.0)[:, None]
+    if mode == "max":
+        out = torch.full((num_bags, d), -torch.inf, dtype=e.dtype, device=e.device)
+        return out.scatter_reduce(0, seg[:, None].expand(-1, d), e, "amax")
+    raise ValueError(mode)
+
+
+def make_sharded_field_embed(mesh, tp_axis: str, batch_axes: tuple[str, ...]):
+    """Vocab-sharded per-field lookup over ``mesh``: ``fn(tables [F, V, D],
+    ids [B, F]) -> [B, F, D]``. Shard ``(di, ti)`` holds rows ``ti * V/tp``
+    onwards of every field and the ``di``-th block of the batch; it looks up
+    the ids in its range (the rest give 0) and the ``tp`` partials are
+    summed. Ids are clamped into the shard's range before the lookup, as
+    the reference's, so an id outside the table contributes nothing."""
+    batch_axes = tuple(batch_axes)
+    dp_sizes = [mesh.shape[a] for a in batch_axes]
+    n_dp, n_tp = math.prod(dp_sizes), mesh.shape[tp_axis]
+
+    def device(di: int, ti: int) -> torch.device:
+        coords = dict.fromkeys(mesh.axis_names, 0)
+        for a, n in zip(reversed(batch_axes), reversed(dp_sizes)):
+            di, coords[a] = divmod(di, n)
+        coords[tp_axis] = ti
+        return mesh.devices[tuple(coords[a] for a in mesh.axis_names)]
+
+    def local(tables_loc, ids, v0):
+        f, v_loc, d = tables_loc.shape
+        local_ids = ids.long() - v0
+        in_range = (local_ids >= 0) & (local_ids < v_loc)
+        rows = local_ids.clamp(0, v_loc - 1) + v_loc * torch.arange(f, device=ids.device)
+        e = F.embedding(rows, tables_loc.reshape(f * v_loc, d))
+        return torch.where(in_range[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                               device=e.device))
+
+    def fn(tables, ids):
+        f, v, d = tables.shape
+        b = ids.shape[0]
+        if v % n_tp or b % n_dp:
+            raise ValueError(f"vocab {v} over {n_tp} tp shards, batch {b} over {n_dp} dp shards")
+        v_loc, b_loc = v // n_tp, b // n_dp
+        blocks = []
+        for di in range(n_dp):
+            total = None
+            for ti in range(n_tp):
+                dev = device(di, ti)
+                part = local(tables[:, ti * v_loc:(ti + 1) * v_loc].to(dev),
+                             ids[di * b_loc:(di + 1) * b_loc].to(dev), ti * v_loc)
+                home = device(di, 0)
+                total = part.to(home) if total is None else total + part.to(home)
+            blocks.append(total)
+        home = blocks[0].device
+        return torch.cat([blk.to(home) for blk in blocks]) if len(blocks) > 1 else blocks[0]
+
+    return fn

@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import activation_fn, matmul_f32
 
@@ -105,7 +106,8 @@ def _dispatch(x, flat_ids, pos, e0: int, e_loc: int, capacity: int, top_k: int):
     src = torch.full((e_loc * capacity + 1,), t, dtype=torch.long, device=x.device)
     src[slot] = token_of
     x_pad = torch.cat([x, x.new_zeros((1, d))])
-    h = x_pad.index_select(0, src[:-1]).reshape(e_loc, capacity, d)
+    # a gather whose backward sorts (no atomics on the card)
+    h = F.embedding(src[:-1], x_pad).reshape(e_loc, capacity, d)
     return h, slot, keep
 
 
@@ -153,7 +155,7 @@ def moe_ffn_local(
     w_k = (flat_w * keep).to(y.dtype).reshape(t, top_k)
     out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(top_k):
-        out = out + y_flat[slot_k[:, j]] * w_k[:, j : j + 1]
+        out = out + F.embedding(slot_k[:, j], y_flat) * w_k[:, j : j + 1]
     return out, aux
 
 

@@ -1,37 +1,46 @@
-"""Decoder-only transformer, dense path: LM serving (prefill, then decode
-over a KV cache) — the port's copy of `repro.models.transformer`.
+"""Decoder-only transformer, dense and MoE: LM serving (prefill, then decode
+over a KV cache) and training (the chunked cross-entropy loss) — the
+port's copy of `repro.models.transformer`.
 
-One definition serves the dense LMs of `repro_torch.configs`
-(``gemma2-2b``, ``gemma2-27b``, ``h2o-danube-1.8b``): GQA, RoPE, sliding
-windows on every layer or on gemma2's even layers only, attention and final
-logit soft caps, SwiGLU or GeGLU FFNs, gemma's ``(1 + w)`` RMSNorm and
-embedding scale. Parameters keep the reference's pytree: a dict with
-``embed [V,D]``, ``final_norm [D]``, ``unembed [D,V]`` and ``layers``, each
-leaf stacked ``[L, ...]``; caches are ``{"k", "v"}`` of ``[L,B,S,KV,hd]``.
+One definition serves the LMs of `repro_torch.configs` (``gemma2-2b``,
+``gemma2-27b``, ``h2o-danube-1.8b`` and the MoE ``qwen3-moe-30b-a3b`` and
+``dbrx-132b``): GQA, RoPE, sliding windows on every layer or on gemma2's
+even layers only, attention and final logit soft caps, SwiGLU or GeGLU
+FFNs, gemma's ``(1 + w)`` RMSNorm and embedding scale. Parameters keep the
+reference's pytree: a dict with ``embed [V,D]``, ``final_norm [D]``,
+``unembed [D,V]`` and ``layers``, each leaf stacked ``[L, ...]``; caches are
+``{"k", "v"}`` of ``[L,B,S,KV,hd]``.
 
 What differs from the reference, and why:
 
 * the layers are a Python loop over the stacked weights (PyTorch runs
-  eagerly; there is no scan to compile); the dense layers run on one
-  device (sharding constraints and remat belong to the reference's
-  multi-chip training path), and only the MoE layer runs over the mesh;
-* attention runs through the kernels: prefill calls
-  `ops.flash_attention` with native GQA (no ``repeat``), the window passed
-  only on a windowed layer, which is the reference's
+  eagerly; there is no scan to compile), each leaf unbound once a call so
+  its gradient is stacked once; the dense layers run on one device
+  (sharding constraints are the identity) and only the MoE layer runs over
+  the mesh; remat follows the config (``remat``, ``remat_policy``,
+  ``remat_chunk``) through ``torch.utils.checkpoint``, per layer, and per
+  chunk of layers around that when ``remat_chunk > 1``;
+* attention runs through the kernels: prefill and training call
+  `ops.flash_attention_train` (the flash kernel's forward, with the
+  gradient of the reference's ``chunked_attention`` recomputed block by
+  block in its backward) with native GQA (no ``repeat``), the window
+  passed only on a windowed layer, which is the reference's
   ``in_window | ~window_active``; decode writes the new token's K/V into
   the cache first, in place, then calls `ops.flash_decode` over the
   positions ``<= t``; the reference keeps the cache read-only in its scan
   and folds the new token in as a separate merge term — the same function
   up to summation order, without a copy of the cache per step;
+* gathers whose gradient is a scatter (the embedding, the MoE dispatch and
+  combine) are ``F.embedding``, whose backward on the card sorts instead of
+  adding atomically: a training step gives the same bits every run;
 * ``init_params`` draws from a ``torch.Generator``, so its numbers are not
   the reference's (`repro_torch.convert.params_from_numpy` carries the
-  reference's own parameters across for the parity tests).
-
+  reference's own parameters across for the parity tests);
 * the serve step attends over a KV cache on one device: a cache whose
   sequence axes span several shards (the reference's
-  ``decode_attend_seqsharded``) is refused, naming its slice.
-
-``make_loss_fn`` waits for the training slice.
+  ``decode_attend_seqsharded``) is refused, naming its slice; the loss runs
+  on one ``dp`` shard and one ``tp`` shard (a larger mesh is refused,
+  naming the multi-card slice).
 """
 
 from __future__ import annotations
@@ -41,6 +50,10 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed.sharding import AxisRules, Mesh
@@ -239,10 +252,10 @@ def _attn_block(x, lp, cfg: TransformerConfig, *, window_active: bool, q_offset:
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     tuning = tune_config.active().config
-    o = ops.flash_attention(
+    o = ops.flash_attention_train(
         q, k, v, causal=True, window=_window(cfg) if window_active else None,
         cap=cfg.attn_softcap, block_q=min(tuning.flash_block_q, s),
-        block_k=min(tuning.flash_block_k, s),
+        block_k=min(tuning.flash_block_k, s), bwd_block=min(cfg.q_block, s),
     )
     o = (o.reshape(b, s, h * hd) @ lp["wo"]).to(x.dtype)
     if kv_out:
@@ -252,10 +265,33 @@ def _attn_block(x, lp, cfg: TransformerConfig, *, window_active: bool, q_offset:
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     dt = _dtype(cfg)
-    x = params["embed"][tokens].to(dt)
+    x = F.embedding(tokens, params["embed"]).to(dt)
     if cfg.rms_one_plus:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of products without batch
+    dims (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``),
+    recompute everything else."""
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.mm.dtype}
+
+
+def _remat(fn, policy: str):
+    """``fn`` recomputed in the backward: nothing saved (``"nothing"``) or
+    the products without batch dims saved (``"dots"``)."""
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}; 'nothing' or 'dots'")
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = lambda: create_selective_checkpoint_contexts(_save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, ctx: ModelContext | TransformerConfig):
@@ -263,23 +299,48 @@ def forward_hidden(params: dict, tokens: torch.Tensor, ctx: ModelContext | Trans
 
     The residual carry crosses layers in float32, as the reference's
     (each layer computes in the config's dtype); so does the aux loss
-    (0.0 for a dense config)."""
+    (0.0 for a dense config). Under autograd, ``cfg.remat`` recomputes
+    each layer in the backward (``remat_policy``), and ``remat_chunk > 1``
+    (when it divides the depth) also each chunk of that many layers, the
+    reference's two-level form."""
     ctx = _context(ctx)
     cfg = ctx.cfg
     dt = _dtype(cfg)
     x32 = _embed(params, tokens, cfg).float()
     aux = torch.zeros((), dtype=torch.float32, device=x32.device)
-    for i, windowed in enumerate(_layer_windows(cfg)):
-        lp = _layer(params, i)
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    windows = _layer_windows(cfg)
+
+    def layer(i, x32, aux):
+        lp = {name: w[i] for name, w in layers.items()}
         x = x32.to(dt)
-        x = x + _attn_block(x, lp, cfg, window_active=windowed)
+        x = x + _attn_block(x, lp, cfg, window_active=windows[i])
         y = rms_norm(x, lp["ffn_norm"], one_plus=cfg.rms_one_plus)
         if cfg.is_moe:
             f, aux_l = ctx.moe_layer(y, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"])
             aux = aux + aux_l
         else:
             f = _dense_ffn(y, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
-        x32 = (x + f).float()
+        return (x + f).float(), aux
+
+    run = layer
+    if cfg.remat and torch.is_grad_enabled():
+        run = _remat(layer, cfg.remat_policy)
+        ck = cfg.remat_chunk if cfg.n_layers % max(cfg.remat_chunk, 1) == 0 else 1
+        if ck > 1:  # the outer level: a chunk of ck layers, nothing saved
+            inner = run
+
+            def chunk(c, x32, aux):
+                for i in range(c * ck, (c + 1) * ck):
+                    x32, aux = inner(i, x32, aux)
+                return x32, aux
+
+            outer = _remat(chunk, "nothing")
+            for c in range(cfg.n_layers // ck):
+                x32, aux = outer(c, x32, aux)
+            run = None
+    for i in range(cfg.n_layers if run is not None else 0):
+        x32, aux = run(i, x32, aux)
     x = rms_norm(x32.to(dt), params["final_norm"], one_plus=cfg.rms_one_plus)
     return x, aux
 
@@ -294,6 +355,61 @@ def forward(params: dict, tokens: torch.Tensor, ctx: ModelContext | TransformerC
     ctx = _context(ctx)
     x, aux = forward_hidden(params, tokens, ctx)
     return apply_unembed(params, x, ctx.cfg), aux
+
+
+def _chunk_xent(x, unembed, labels, cap):
+    """One sequence chunk's summed cross-entropy: x [B,ck,D], labels [B,ck].
+    The shift is the row max without a gradient (the reference's
+    ``stop_gradient``: exact, the log-sum-exp does not depend on it); a
+    label outside the vocabulary adds only the log-sum-exp, as the
+    reference's ``where(in_range, ...)``."""
+    logits = softcap(matmul_f32(x, unembed), cap)
+    v = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    lse = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1)) + m
+    labels = labels.long()
+    in_range = (labels >= 0) & (labels < v)
+    lab = torch.gather(logits, -1, labels.clamp(0, v - 1)[..., None])[..., 0]
+    return torch.sum(lse - torch.where(in_range, lab, 0.0))
+
+
+def make_loss_fn(ctx: ModelContext | TransformerConfig, aux_weight: float = 0.01,
+                 chunk: int = 256):
+    """The reference's fused, chunked cross-entropy: ``loss_fn(params, batch
+    {"tokens", "labels"}) -> (loss + aux_weight * aux, {"loss", "aux"})``,
+    the mean over every token. The unembedding runs ``chunk`` positions at
+    a time (float32 logits, the final soft cap) and, under autograd, each
+    chunk's logits are recomputed in the backward, so no ``[B,S,V]`` float32
+    tensor lives (the reference's checkpointed scan). One ``dp`` shard and
+    one ``tp`` shard: a mesh with more (a data-parallel or vocab-parallel
+    loss) waits for the multi-card slice (ROADMAP queue 1 item 9)."""
+    ctx = _context(ctx)
+    cfg = ctx.cfg
+    if ctx.mesh is not None and ctx.mesh.size > 1:
+        raise NotImplementedError(
+            f"the loss runs on one dp and one tp shard, not a {ctx.mesh.shape} mesh: a "
+            "sharded loss waits for the multi-card slice of the port (ROADMAP queue 1 item 9)")
+    cap = cfg.final_softcap
+
+    def xent(x, unembed, labels):
+        b, s, _ = x.shape
+        ck = min(chunk, s)
+        if s % ck:
+            raise ValueError(f"sequence {s} not divisible by the loss chunk {ck}")
+        one = _chunk_xent
+        if torch.is_grad_enabled():
+            one = lambda *a: checkpoint(_chunk_xent, *a, use_reentrant=False)  # noqa: E731
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in range(0, s, ck):
+            total = total + one(x[:, a:a + ck], unembed, labels[:, a:a + ck], cap)
+        return total / (b * s)
+
+    def loss_fn(params, batch):
+        x, aux = forward_hidden(params, batch["tokens"], ctx)
+        loss = xent(x, params["unembed"], batch["labels"])
+        return loss + aux_weight * aux, {"loss": loss, "aux": aux}
+
+    return loss_fn
 
 
 def decode_layout(rules: AxisRules, batch: int):

@@ -9,8 +9,8 @@ The lexical scan must agree with its plain version to the bit, and its
 packed-tile path with the unpacked kernel on the unpacked tokens; the dense
 score + top-k within 1e-5 with ids equal except at float near-ties
 (`_torch_parity`, the plain ranking taken 8 places deeper), and to the bit
-on integer-valued inputs; the flash attention and decode kernels (every
-attention route; decode with ``t`` on the host and on the card, and
+on integer-valued inputs, rows narrower than its 128-byte stage included;
+the flash attention and decode kernels (every attention route; decode with ``t`` on the host and on the card, and
 replayed from a CUDA graph) within 3e-4 / 3e-5 in float32 and 3e-2 in
 bfloat16 (the reference's tolerances), and the reduced LM on the card
 within 1e-4 / 1e-5 of the CPU; its serve step with ``t`` on the card makes
@@ -25,8 +25,11 @@ one CUDA stream a shard): `search_mesh` gives the one-shard scan's bytes
 whatever the caller's stream is still doing, with no host sync, and the
 sharded session the resident session's rows in the same bytes of memory;
 the reduced MoE LM on the card is within 1e-4 / 1e-5 of the CPU and its
-decode step makes no host sync. ``chip_smoke.py`` makes the same checks at
-the full width.
+decode step makes no host sync. Training: the flash kernel under autograd
+gives the CPU's gradients (float32 within 1e-4 / 1e-5, bfloat16 within
+3e-2), and two driver runs and a crash resumed from a checkpoint give the
+same bytes on the card. ``chip_smoke.py`` makes the same checks at the full
+width.
 """
 
 import numpy as np
@@ -180,8 +183,14 @@ def test_cuda_kernel_matches_plain_version():
     assert torch.equal(ki, pi)
     assert torch.equal((ks + 0.0).view(torch.int32), (ps + 0.0).view(torch.int32))
     assert torch.equal(ki[3], torch.arange(300, dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError, match="128 bytes"):
-        ops.score_topk(q[:, :8].contiguous(), d[:, :8].contiguous(), k=5, block_d=1024)
+    # rows narrower than the kernel's 128-byte stage (8 and 40 float32, 24
+    # bfloat16) are zero-padded by the wrapper: the plain version's bits
+    for dim, dtype in ((8, torch.float32), (40, torch.float32), (24, torch.bfloat16)):
+        qn, dn = q[:, :dim].to(dtype).contiguous(), d[:, :dim].to(dtype).contiguous()
+        ks, ki = ops.score_topk(qn, dn, k=50, block_d=1024)
+        ps, pi = score_topk.score_topk_ref(qn, dn, k=50, block_d=1024)
+        assert torch.equal(ki, pi), dim
+        assert torch.equal((ks + 0.0).view(torch.int32), (ps + 0.0).view(torch.int32)), dim
 
 
 @pytest.mark.cuda
@@ -843,3 +852,68 @@ def test_cuda_moe_lm_matches_the_cpu_and_decodes_without_host_sync():
             torch.cuda.set_sync_debug_mode("default")
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), t
         tok = torch.argmax(want, -1)
+
+
+# ---------------------------------------------------------------------------
+# the training slice: flash attention with a gradient, a deterministic step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,window,cap", [
+    (torch.float32, 64, 32, 50.0), (torch.bfloat16, 80, 64, None),
+    (torch.bfloat16, 64, None, 30.0)], ids=["f32-cap", "bf16-hd80-window", "bf16-hd64-cap"])
+def test_cuda_flash_attention_train_gradients_match_the_cpu(dtype, hd, window, cap):
+    """The autograd function on the card (the kernel's forward, no graph of
+    its own) gives the CPU's gradients: float32 within 1e-4 / 1e-5,
+    bfloat16 within 3e-2 (the products' operands round to bfloat16)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(hd)
+    b, s, h, kv = 2, 256, 8, 2
+    q, k, v = (torch.randn((b, s, n, hd), generator=g).to(dtype) for n in (h, kv, kv))
+    do = torch.randn((b, s, h, hd), generator=g).to(dtype)
+
+    def grads(where):
+        xs = [x.to(where).requires_grad_(True) for x in (q, k, v)]
+        out = ops.flash_attention_train(*xs, window=window, cap=cap, block_q=64, block_k=64,
+                                        bwd_block=64)
+        return torch.autograd.grad(out, xs, do.to(where))
+
+    before = ops.LAUNCHES["flash_attention"]
+    card = grads(dev)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    tol = {"rtol": 1e-4, "atol": 1e-5} if dtype == torch.float32 else {"rtol": 3e-2,
+                                                                       "atol": 3e-2}
+    for got, want in zip(card, grads("cpu")):
+        torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_training_steps_are_deterministic(tmp_path):
+    """Two runs of the driver on the card give the same bytes (embedding and
+    MoE gathers through F.embedding, whose backward sorts), and a crash
+    resumed from a checkpoint gives the straight run's bytes."""
+    from repro_torch.launch import train as train_cli
+
+    _card()
+    for arch in ("gemma2-2b", "qwen3-moe-30b-a3b", "fm"):
+        kw = dict(steps=4, batch=2, seq=64, ckpt_every=2, device="cuda")
+        a, b = train_cli.train(arch, **kw), train_cli.train(arch, **kw)
+        with pytest.raises(RuntimeError, match="injected"):
+            train_cli.train(arch, ckpt_dir=str(tmp_path / arch), fail_at_step=3, **kw)
+        c = train_cli.train(arch, ckpt_dir=str(tmp_path / arch), **kw)
+        for x in (b, c):
+            for tree in ("params", "m", "v"):
+                got = x["params"] if tree == "params" else getattr(x["opt"], tree)
+                want = a["params"] if tree == "params" else getattr(a["opt"], tree)
+                for p, q in zip(_tree_leaves(want), _tree_leaves(got)):
+                    assert torch.equal(_bits(p), _bits(q)), (arch, tree)
+
+
+def _bits(t):
+    return t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    return [tree]

@@ -17,7 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -40,8 +41,14 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                    "core/invindex.py", "tune/search.py", "tune/cache.py", "tune/targets.py",
                    "experiments/bench.py", "distributed/sharding.py", "launch/mesh.py",
                    "models/moe.py", "configs/archs/qwen3_moe_30b_a3b.py",
-                   "configs/archs/dbrx_132b.py"):
+                   "configs/archs/dbrx_132b.py", "optim/adamw.py", "optim/compress.py",
+                   "data/loader.py", "launch/train.py", "models/embedding.py",
+                   "models/recsys.py", "configs/archs/fm.py", "configs/archs/dcn_v2.py",
+                   "configs/archs/mind.py", "configs/archs/sasrec.py"):
         assert module in names
+    examples = {p.name for p in files if p.parent == ROOT / "examples"}
+    assert {"torch_quickstart.py", "torch_train_lm.py",
+            "torch_candidate_retrieval.py"} <= examples
     offenders = {
         str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files
     }
@@ -62,6 +69,7 @@ def test_port_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "import repro_torch.launch.experiment, repro_torch.launch.mesh\n"
         "import repro_torch.distributed.sharding, repro_torch.models.moe\n"
+        "import repro_torch.launch.train, repro_torch.optim, repro_torch.models.recsys\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -96,6 +104,18 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(tmp_path):
         serve_cli.main(["--mode", "search", "--bench-out", str(tmp_path / "b.json")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--mode", "decode", "--tokens", "2"])
+    from repro_torch.launch import train as train_cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "fm", "--steps", "1", "--ckpt-dir", str(tmp_path / "c")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.train("gemma2-2b", steps=1)
+    import runpy
+
+    for name in ("torch_train_lm.py", "torch_candidate_retrieval.py"):
+        example = runpy.run_path(str(ROOT / "examples" / name))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example["main"](["--ckpt-dir", str(tmp_path / "e")] if "train" in name else [])
     assert not os.listdir(tmp_path)  # nothing ran
     assert resolve_device("cpu") == torch.device("cpu")
 
