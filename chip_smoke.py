@@ -114,7 +114,13 @@ code (nothing is caught and passed over):
                   and a `LexicalSession` over the ``experiment`` phase's
                   corpus (4 waves of 256 queries); every dispatch must launch
                   its kernel once, sampled answers must match the plain
-                  oracles; then a batch-size sweep at 8, 64 and 128; then the
+                  oracles; then a batch-size sweep at 8, 64 and 128; then
+                  ``serve.dense_pad``: `DenseSession` over 2^24 docs at
+                  dims 8, 24 and 40 (rows narrower than the kernel's 128
+                  bytes): the session pads its corpus once, and a 64-query
+                  block gives the bits of the kernel's own per-call pad
+                  (the path before) with nothing corpus-sized allocated,
+                  both paths timed in turns; then the
                   lexical corpus resident packed (``token_pack="auto"``),
                   the same waves, every answer the unpacked session's.
 9. ``mesh``       the mesh on one card, every mesh entry ``cuda:0`` and one
@@ -222,6 +228,29 @@ code (nothing is caught and passed over):
                   attention and flash decode launched) and
                   ``examples/torch_candidate_retrieval.py`` (``score_topk``
                   launched, rankings those of the CPU's run).
+13. ``gnn``       the GNN (``pna``; no kernel of the four lies on its path,
+                  and none may launch there). ``gnn.parity``: the reduced
+                  config on the card against the CPU in every regime (the
+                  full graph; bucketed and scatter on (1,) and (4,) meshes
+                  of the card; sampled; batched): float64 logits and every
+                  gradient leaf within the CPU tests' 1e-5, float32 logits
+                  within 1e-5 of the largest; each twice on the card, the
+                  same bytes; 3 training steps twice on cora's graph and on
+                  128 molecules, the same bytes; the hand-worked ties (a
+                  segment max under a negative gradient, a maximum tied
+                  across shards). ``gnn.products``: full ``pna`` (4 layers,
+                  d 75) over a ``make_graph`` graph at ogbn-products' size
+                  (2,449,408 nodes, 61,859,140 edges, ``d_feat`` 100)
+                  under ``torch.no_grad``, bucketed on (1,) and (4,) meshes
+                  of the card: seconds (p50 of 3 after a warm-up), edges x
+                  layers a second, peak memory (under 45 GB) beside the
+                  reckoning, a profiled pass's idle share and top device
+                  operations, the (4,) logits within 1e-5 of the largest
+                  of the (1,). ``gnn.train``: AdamW steps at the cells'
+                  schedule at reddit's sampled minibatches (a graph of
+                  232,965 nodes and 114,615,892 edges; the host's share of
+                  a step), cora's full graph and 128 molecules: step
+                  seconds, rows a second, losses. Then the phase's seconds.
 
 Each phase's wall time follows it (``phase_time``). The last three lines
 are the card's ``nvidia-smi`` name and power limit, a
@@ -244,7 +273,7 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 PHASES = ("env", "build", "kernels", "experiment", "paper", "tune", "resume", "serve", "mesh",
-          "lm", "lm_moe", "train")
+          "lm", "lm_moe", "train", "gnn")
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet) and the INT32
 # compare/add rate of the CUDA cores, 64 results per clock per SM for compute
@@ -1901,6 +1930,68 @@ def _answered_once(results, rids) -> None:
         raise AssertionError(f"{len(results)} answers for {len(rids)} queries")
 
 
+DENSE_PAD_DIMS, DENSE_PAD_DOCS = (8, 24, 40), 1 << 24
+
+
+def _serve_dense_pad(ctx, k: int, chunk: int, dev="cuda") -> None:
+    """`DenseSession` at widths that are no multiple of the kernel's 128-byte
+    row: the session pads its corpus once, so a 64-query block gives the
+    bits of the kernel's own per-call pad (the path before) and allocates
+    nothing the size of the corpus; both paths timed in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import scan
+    from repro_torch.core.scoring import get_scorer
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DenseSession
+
+    lines = {}
+    for dim in DENSE_PAD_DIMS:
+        vecs = _rows(50 + dim, (DENSE_PAD_DOCS, dim), torch.float32)
+        q = _rows(60 + dim, (64, dim), torch.float32).cpu().numpy()
+        session = DenseSession(vecs, "dense_cosine", k=k, chunk_size=chunk, device=dev)
+        cosine = get_scorer("dense_cosine")
+        mapped = cosine.row_map(vecs)  # the session before: mapped once, not padded
+
+        def before():
+            qt = cosine.row_map(torch.as_tensor(q, device=dev))
+            return scan.search_local(qt, mapped, get_scorer("dense_dot"), k=k, chunk_size=chunk)
+
+        want = before()
+        got = session.search(q)
+        if not (torch.equal(got.scores, want.scores.cpu())
+                and torch.equal(got.ids, want.ids.cpu())):
+            raise AssertionError(f"serve.dense_pad dim {dim}: bits differ from the wrapper's pad")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        session.search(q)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - base
+        launches = ops.LAUNCHES["score_topk"]
+        corpus_bytes = vecs.numel() * 4
+        if above >= corpus_bytes or launches != 1:
+            raise AssertionError(f"serve.dense_pad dim {dim}: {above} B above the session "
+                                 f"during a block (corpus {corpus_bytes} B), {launches} launches")
+        times = {"session": [], "wrapper_pad": []}
+        for name in ("session", "wrapper_pad", "wrapper_pad", "session") * 3:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            session.search(q) if name == "session" else before().scores.cpu()
+            times[name].append(time.monotonic() - t0)
+        lines[f"dim_{dim}"] = {
+            "resident_dim": int(session._vectors.shape[1]), "corpus_bytes": corpus_bytes,
+            "block_bytes_above_session": above, "same_bits": True,
+            "block_s_p50": float(np.median(times["session"])),
+            "wrapper_pad_block_s_p50": float(np.median(times["wrapper_pad"]))}
+        del session, vecs, mapped
+        torch.cuda.empty_cache()
+    emit("serve.dense_pad", n_docs=DENSE_PAD_DOCS, queries=64, scorer="dense_cosine", k=k,
+         **lines, nvidia_smi=ctx["smi"])
+
+
 def phase_serve(ctx) -> None:
     import numpy as np
     import torch
@@ -1950,6 +2041,7 @@ def phase_serve(ctx) -> None:
          **_serve_line(service, "dense", wall_s, sweep), nvidia_smi=ctx["smi"])
     del corpus, session, service, results
     torch.cuda.empty_cache()
+    _serve_dense_pad(ctx, k, chunk)
 
     # lexical: the experiment phase's corpus, 4 waves of 256 as serve_search does
     coll = _mirex_collection(ctx)
@@ -3634,6 +3726,452 @@ def phase_train(ctx, dev="cuda", cfg=None) -> None:
     _train_examples(ctx, dev)
 
 
+# ---------------------------------------------------------------------------
+# phase gnn: PNA (`repro_torch.models.gnn`; its segment reduces are torch ops,
+# as the reference's are jax.ops outside any Pallas kernel)
+# ---------------------------------------------------------------------------
+
+# card against CPU at the reduced config: float64 logits and every gradient
+# leaf within the CPU tests' TOL, elementwise. float32 logits (and the (4,)
+# bucketed forward against the (1,) one at ogbn-products' size) within
+# GNN_F32_TOL of the largest logit: the same messages are summed in the same
+# order, but products run on other libraries or row counts, and four layers
+# of the seeded init's ~60x growth amplify one rounding, so an element near
+# zero misses any elementwise limit (tests/test_torch_gnn.py: the reference's
+# own jitted and eager forwards differ by 8.6e-7 of the largest logit, and
+# by 2.6e-4 elementwise, at 48 nodes)
+GNN_TOL = {"rtol": 1e-5, "atol": 1e-5}
+GNN_F32_TOL = 1e-5
+GNN_PEAK_LIMIT = 45e9
+GNN_FWD_REPS = 3
+GNN_TRAIN_STEPS = {"minibatch_lg": 10, "full_graph_sm": 20, "molecule": 20}
+
+
+def _gnn_inputs(dev, dtype, n_nodes=64, n_edges=512, d_feat=9):
+    """Reduced-size inputs of every regime, seeded: a `make_graph` graph
+    (its labels), a 2-hop tree of 16 seeds with fanout (5, 3) (random
+    features: no group of repeated neighbours, whose zero variance gives the
+    reference's own NaN gradient, held on the CPU by
+    tests/test_torch_gnn.py), 4 molecules of 10 nodes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import synthetic
+
+    g = synthetic.make_graph(n_nodes=n_nodes, n_edges=n_edges, d_feat=d_feat, seed=4)
+    rng = np.random.default_rng(1)
+    sb = {"seed_x": rng.standard_normal((16, d_feat)),
+          "hop1_x": rng.standard_normal((16, 5, d_feat)),
+          "hop2_x": rng.standard_normal((16, 5, 3, d_feat)),
+          "labels": rng.integers(0, 1 << 10, 16)}
+    mol = {"x": rng.standard_normal((4, 10, d_feat)), "src": rng.integers(0, 10, (4, 20)),
+           "dst": rng.integers(0, 10, (4, 20))}
+
+    def t(a):
+        a = torch.as_tensor(np.asarray(a))
+        return (a.to(dtype) if a.is_floating_point() else a).to(dev)
+
+    return g, {k: t(v) for k, v in sb.items()}, {k: t(v) for k, v in mol.items()}, t
+
+
+def _gnn_regimes(cfg, dev, dtype):
+    """``{name: (logits_fn(params), labels)}`` for every regime on ``dev``:
+    the full graph; bucketed and scatter on (1,) and (4,) meshes of
+    ``dev``; sampled; batched."""
+    from repro_torch.data import graph_prep
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.models import gnn
+
+    g, sb, mol, t = _gnn_inputs(dev, dtype)
+    n = g["x"].shape[0]
+    y = t(g["y"] % cfg.n_classes)
+    out = {"full": (lambda p: gnn.forward_full_graph(p, t(g["x"]), t(g["src"]), t(g["dst"]),
+                                                     cfg), y),
+           "sampled": (lambda p: gnn.forward_sampled(p, sb["seed_x"], sb["hop1_x"],
+                                                     sb["hop2_x"], cfg),
+                       sb["labels"] % cfg.n_classes),
+           "batched": (lambda p: gnn.forward_batched_graphs(p, mol["x"], mol["src"],
+                                                            mol["dst"], cfg), y[:4])}
+    for shards in (1, 4):
+        mesh = _card_mesh((shards,), ("data",), dev)
+        bs, bd, _ = graph_prep.bucket_edges(g["src"], g["dst"], n_nodes=n, n_shards=shards)
+        for mode, (s, d) in (("bucketed", (bs, bd)), ("scatter", (g["src"], g["dst"]))):
+            fwd = gnn.make_sharded_full_graph(mesh, rules_for_mesh(mesh), cfg, mode=mode)
+            out[f"{mode}_{shards}"] = ((lambda f, s, d: lambda p: f(p, t(g["x"]), t(s), t(d)))(
+                fwd, s, d), y)
+    return out
+
+
+def _gnn_logits_grads(cfg, params, dev, dtype) -> dict:
+    """Each regime's logits and every leaf's gradient of its loss on ``dev``
+    (``params`` drawn on the CPU, cast to ``dtype``), back on the CPU."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import gnn
+
+    res = {}
+    for name, (fn, labels) in _gnn_regimes(cfg, dev, dtype).items():
+        p = _tree_to({k: v for k, v in params.items()}, dev)
+        p = {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(dtype)) for k, v in p.items()}
+        kept = {}
+
+        def loss_fn(q, _):
+            kept["logits"] = fn(q)
+            loss = gnn.xent_loss(kept["logits"], labels)
+            return loss, {"loss": loss}
+
+        _, grads = train_cli.value_and_grad(loss_fn, p, None)
+        res[name] = [("logits", kept["logits"].detach().cpu())] + [
+            (k, v.cpu()) for k, v in _named_leaves(grads)]
+    return res
+
+
+def _gnn_ties(dev) -> dict:
+    """The hand-worked ties on ``dev``: a segment max tied three ways under
+    a negative gradient (a third each, where torch's own segment_reduce
+    backward gives each the whole), and the cross-shard max split first
+    among shards, then among edges (tests/test_torch_gnn.py)."""
+    import torch
+
+    from repro_torch.models import gnn, segment
+
+    x = torch.tensor([[1.0], [1.0], [1.0], [0.0]], device=dev, requires_grad=True)
+    seg = segment.segments(torch.tensor([0, 0, 0, 1], device=dev), 2)
+    out = seg.reduce(seg.take(x), "max")
+    grad, = torch.autograd.grad(out, x, grad_outputs=torch.tensor([[-0.5], [2.0]], device=dev))
+    want = [-0.5 / 3] * 3 + [2.0]
+    if not torch.allclose(grad.ravel().cpu(), torch.tensor(want), rtol=0, atol=1e-7):
+        raise AssertionError(f"segment max ties: {grad.ravel().tolist()} != {want}")
+    m0 = torch.tensor([[3.0], [3.0], [1.0]], device=dev, requires_grad=True)
+    m1 = torch.tensor([[3.0], [1.0], [1.0]], device=dev, requires_grad=True)
+    aggs = [gnn.partial_aggregates(m, torch.tensor(d, device=dev), 2)
+            for m, d in ((m0, [0, 0, 1]), (m1, [0, 1, 1]))]
+    merged = gnn.merge_aggregates(aggs)
+    (merged[0]["max"][0].sum() + merged[1]["max"][1].sum()).backward()
+    got = [m0.grad.ravel().tolist(), m1.grad.ravel().tolist()]
+    if got != [[0.25, 0.25, 0.0], [0.0, 0.25, 0.25]]:
+        raise AssertionError(f"cross-shard ties: {got}")
+    return {"segment_max_tie_grads": grad.ravel().tolist(), "cross_shard_tie_grads": got}
+
+
+def _gnn_steps(cfg, params, kind, batch, mesh, steps: int, dev) -> tuple:
+    """``steps`` AdamW steps at the cells' schedule through
+    `launch.train.make_train_step` over `build_gnn`'s loss -> (params,
+    losses)."""
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw
+
+    step = train_cli.make_train_step(
+        train_cli.build_gnn(cfg, kind, mesh, rules_for_mesh(mesh)), train_cli.GNN_LR)
+    params = _tree_to(params, dev)
+    opt = adamw.adamw_init(params)
+    losses = []
+    for _ in range(steps):
+        params, opt, _, metrics = step(params, opt, None, batch)
+        losses.append(float(metrics["loss"]))
+    return params, losses
+
+
+def _gnn_parity(ctx, dev="cuda") -> None:
+    """Reduced `pna` on the card against the CPU in every regime, twice on
+    the card (the same bytes), 3 training steps twice on cora's graph and
+    on 128 molecules (the same bytes), and the hand-worked ties."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import graph_prep
+    from repro_torch.models import gnn
+
+    t0 = time.monotonic()
+    cfg = reduced_config("pna")
+    params = gnn.init_params(cfg, 9, torch.Generator().manual_seed(0))
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        card = _gnn_logits_grads(cfg, params, dev, dtype)
+        cpu = _gnn_logits_grads(cfg, params, "cpu", dtype)
+        again = _gnn_logits_grads(cfg, params, dev, dtype)
+        for name in cpu:
+            if dtype == torch.float64:
+                for (leaf, got), (_, want) in zip(card[name], cpu[name]):
+                    torch.testing.assert_close(got, want, **GNN_TOL,
+                                               msg=lambda m: f"gnn {name} {leaf}: {m}")
+                    key = f"float64_{name}"
+                    worst[key] = max(worst.get(key, 0.0), float((got - want).abs().max()))
+            else:
+                got, want = card[name][0][1], cpu[name][0][1]
+                err = float((got - want).abs().max()) / float(want.abs().max())
+                worst[f"float32_{name}_logits_over_largest"] = err
+                if err > GNN_F32_TOL:
+                    raise AssertionError(f"gnn {name} float32 logits: {err} of the largest")
+            for (leaf, a), (_, b) in zip(card[name], again[name]):
+                if not torch.equal(_bits(a), _bits(b)):
+                    raise AssertionError(f"gnn {name} {leaf}: two runs on the card differ")
+    # training bytes at sizes past the small-gather paths: cora's graph
+    # (bucketed to 45,056 edges) and 128 molecules of 64 edges
+    from repro_torch.configs import shapes_for
+    from repro_torch.data import synthetic
+
+    cora = shapes_for("pna")["full_graph_sm"].dims
+    g = synthetic.make_graph(n_nodes=cora["n_nodes"], n_edges=cora["n_edges"], d_feat=9, seed=5)
+    bs, bd, _ = graph_prep.bucket_edges(g["src"], g["dst"], n_nodes=cora["n_nodes"],
+                                        n_shards=1, bucket_size=cora["n_edges_padded"])
+    rng = np.random.default_rng(3)
+    batches = {
+        "full_graph": {"x": g["x"], "src": bs, "dst": bd, "labels": g["y"] % cfg.n_classes},
+        "batched_graphs": {"x": rng.standard_normal((128, 30, 9)).astype(np.float32),
+                           "src": rng.integers(0, 30, (128, 64)),
+                           "dst": rng.integers(0, 30, (128, 64)),
+                           "labels": rng.integers(0, cfg.n_classes, 128)}}
+    mesh = _card_mesh((1,), ("data",), dev)
+    train_losses = {}
+    for kind, b in batches.items():
+        b = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+        runs = [_gnn_steps(cfg, params, kind, b, mesh, 3, dev) for _ in range(2)]
+        differ = [k for (k, a), (_, c) in zip(_named_leaves(runs[0][0]),
+                                               _named_leaves(runs[1][0]))
+                  if not torch.equal(_bits(a), _bits(c))]
+        if differ or runs[0][1] != runs[1][1]:
+            raise AssertionError(f"gnn training ({kind}): two runs differ in {differ}")
+        train_losses[kind] = runs[0][1]
+    ties = _gnn_ties(dev)
+    emit("gnn.parity", config="reduced pna", regimes=sorted(worst), tol_float64=GNN_TOL,
+         tol_float32_logits_of_largest=GNN_F32_TOL, max_diff=worst, two_runs_same_bytes=True,
+         train_3_steps_same_bytes=True, train_losses=train_losses, **ties,
+         seconds=time.monotonic() - t0, nvidia_smi=ctx["smi"])
+
+
+def _gnn_memory_plan(n_nodes: int, n_edges: int, d: int, d_feat: int, cfg) -> dict:
+    """The products forward's memory, reckoned before it runs (float32)."""
+    from repro_torch.models import gnn
+
+    edge_row = d * 4
+    feats = (1 + gnn.n_agg_feats(cfg)) * d * 4
+    return {
+        "one_edge_tensor_bytes": n_edges * edge_row,
+        "naive_layer_bytes": 5 * n_edges * edge_row,  # h[src], h[dst], 2 products, m, ...
+        "naive_feats_bytes": n_nodes * feats,
+        "inputs_bytes": n_nodes * d_feat * 4 + 2 * n_edges * 4,
+        "node_tensors_bytes": 6 * n_nodes * edge_row,  # h, the products, 4 aggregates
+        "block_bytes": 3 * gnn.EDGE_BLOCK * edge_row + gnn.EDGE_BLOCK * (8 + 8),
+        "block_feats_bytes": 2 * gnn.EDGE_BLOCK * feats,  # a block's destinations, upper bound
+        "segments_bytes": n_edges * 8 + n_nodes * 8,
+    }
+
+
+def _gnn_forward(fwd, params, x, src, dst, reps: int) -> tuple:
+    """A warm-up forward under `torch.no_grad`, then ``reps`` timed ones ->
+    (logits, seconds of each)."""
+    import torch
+
+    with torch.no_grad():
+        out = fwd(params, x, src, dst)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fwd(params, x, src, dst)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+    return out, times
+
+
+def _gnn_products(ctx, dev="cuda", dims=None, reps=GNN_FWD_REPS) -> None:
+    """Full `pna` (4 layers, d 75) over a `make_graph` graph at ogbn-products'
+    size, under `torch.no_grad`: bucketed on a (1,) and a (4,) mesh of the
+    card, seconds (p50 of ``reps`` after a warm-up), edges x layers a
+    second, peak memory beside the reckoning, one profiled pass."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data import graph_prep, synthetic
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.models import gnn
+
+    t0 = time.monotonic()
+    d = dims or shapes_for("pna")["ogb_products"].dims
+    cfg = dataclasses.replace(get_config("pna"), n_classes=d["n_classes"])
+    n, e = d["n_nodes"], d["n_edges"]
+    g = synthetic.make_graph(n_nodes=n, n_edges=e, d_feat=d["d_feat"],
+                             n_classes=d["n_classes"], seed=5, device=dev)
+    make_s = time.monotonic() - t0
+    plan = _gnn_memory_plan(n, e, cfg.d_hidden, d["d_feat"], cfg)
+    params = gnn.init_params(cfg, d["d_feat"], torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    x = torch.as_tensor(g["x"]).to(dev)
+    lines, outs = {}, {}
+    for shards in (1, 4):
+        tb = time.monotonic()
+        bs, bd, bucket = graph_prep.bucket_edges(g["src"], g["dst"], n_nodes=n, n_shards=shards)
+        bucket_s = time.monotonic() - tb
+        src, dst = torch.as_tensor(bs).to(dev), torch.as_tensor(bd).to(dev)
+        mesh = _card_mesh((shards,), ("data",), dev)
+        fwd = gnn.make_sharded_full_graph(mesh, rules_for_mesh(mesh), cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, times = _gnn_forward(fwd, params, x, src, dst, reps)
+        p50 = float(np.quantile(times, 0.5))
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"products forward on ({shards},): non-finite logits")
+        if peak > GNN_PEAK_LIMIT:
+            raise AssertionError(f"products forward on ({shards},): peak {peak} B over "
+                                 f"{GNN_PEAK_LIMIT:.0f}")
+        prof = _device_profile(lambda: _gnn_forward(fwd, params, x, src, dst, 0))
+        busy, wall = prof["device_busy_s"], prof["wall_s"]
+        outs[shards] = out
+        lines[f"mesh_{shards}"] = {
+            "bucket_size": bucket, "bucket_edges_s": bucket_s, "forward_s_p50": p50,
+            "forward_s": times, "edge_layers_per_s": e * cfg.n_layers / p50,
+            "max_memory_allocated": peak, "memory_above_inputs": peak - base,
+            "profile": {"wall_s": wall, "device_busy_s": busy,
+                        "idle_share": 1.0 - busy / wall if busy else "not measured",
+                        "top": [{"op": k[:120], "s": s, "calls": c}
+                                for k, s, c in prof["rows"][:10]]}}
+        del src, dst
+    scale = float(outs[1].abs().max())
+    shard_err = float((outs[4] - outs[1]).abs().max()) / scale
+    if shard_err > GNN_F32_TOL:
+        raise AssertionError(f"products: (4,) vs (1,) max diff {shard_err} of the largest "
+                             f"logit, over {GNN_F32_TOL}")
+    same_class = float((outs[4].argmax(-1) == outs[1].argmax(-1)).float().mean())
+    del outs, x, params
+    torch.cuda.empty_cache()
+    emit("gnn.products", config="pna", layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+         nodes=n, edges=e, d_feat=d["d_feat"], classes=d["n_classes"],
+         edge_block=gnn.EDGE_BLOCK, make_graph_s=make_s, memory_plan=plan,
+         peak_limit=GNN_PEAK_LIMIT, **lines,
+         mesh4_vs_mesh1={"max_diff_over_max_logit": shard_err, "limit": GNN_F32_TOL,
+                         "largest_logit": scale, "same_argmax_share": same_class,
+                         "forward_s_ratio": lines["mesh_4"]["forward_s_p50"]
+                         / lines["mesh_1"]["forward_s_p50"]},
+         seconds=time.monotonic() - t0, nvidia_smi=ctx["smi"])
+
+
+def _gnn_train(ctx, dev="cuda", dims=None, steps=None) -> None:
+    """AdamW steps of full-width `pna` at the three trainable shapes of
+    `configs/shapes.py`: reddit's sampled minibatches (the host's share of
+    a step beside the card's), cora's full graph (bucketed on a (1,) mesh,
+    as the reference's cells train it), 128 molecules."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data import graph_prep, sampler, synthetic
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+
+    t_phase = time.monotonic()
+    shapes = dims or {k: v.dims for k, v in shapes_for("pna").items()}
+    steps = steps or GNN_TRAIN_STEPS
+    lines = {}
+
+    def run(name, kind, make_batch, rows, d, mesh=None):
+        cfg = dataclasses.replace(get_config("pna"), n_classes=d["n_classes"])
+        params = gnn.init_params(cfg, d["d_feat"], torch.Generator(device=dev).manual_seed(0),
+                                 device=dev)
+        mesh = mesh or _card_mesh((1,), ("data",), dev)
+        step = train_cli.make_train_step(
+            train_cli.build_gnn(cfg, kind, mesh, rules_for_mesh(mesh)), train_cli.GNN_LR)
+        opt = adamw.adamw_init(params)
+        torch.cuda.reset_peak_memory_stats()
+        host, copy, card, losses = [], [], [], []
+        for i in range(steps[name] + 1):  # step 0 is warm-up
+            t0 = time.monotonic()
+            b = make_batch(i)
+            t1 = time.monotonic()
+            b = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+            torch.cuda.synchronize()
+            t2 = time.monotonic()
+            params, opt, _, metrics = step(params, opt, None, b)
+            losses.append(float(metrics["loss"]))
+            t3 = time.monotonic()
+            host.append(t1 - t0)
+            copy.append(t2 - t1)
+            card.append(t3 - t2)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"gnn.train {name}: non-finite losses {losses}")
+        total = np.array(host[1:]) + np.array(copy[1:]) + np.array(card[1:])
+        p50 = float(np.quantile(total, 0.5))
+        lines[name] = {"kind": kind, "steps": steps[name], "rows": rows, "losses": losses,
+                       "step_s_p50": p50, "step_s": total.tolist(), "rows_per_s": rows / p50,
+                       "host_s_p50": float(np.quantile(host[1:], 0.5)),
+                       "copy_s_p50": float(np.quantile(copy[1:], 0.5)),
+                       "card_s_p50": float(np.quantile(card[1:], 0.5)),
+                       "host_share": float(np.median((np.array(host[1:]) + np.array(copy[1:]))
+                                                     / total)),
+                       "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    d = shapes["minibatch_lg"]
+    t0 = time.monotonic()
+    g = synthetic.make_graph(n_nodes=d["n_nodes"], n_edges=d["n_edges"], d_feat=d["d_feat"],
+                             n_classes=d["n_classes"], seed=5, device=dev)
+    csr = sampler.build_csr(g["src"], g["dst"], g["x"], g["y"])
+    del g
+    prep_s = time.monotonic() - t0
+    run("minibatch_lg", "minibatch", lambda i: sampler.sample_batch(
+        csr, batch_nodes=d["batch_nodes"], fanout=d["fanout"], seed=0, step=i),
+        d["batch_nodes"], d)
+    lines["minibatch_lg"].update(graph_nodes=d["n_nodes"], graph_edges=d["n_edges"],
+                                 fanout=d["fanout"], graph_prep_s=prep_s,
+                                 hop2_x_bytes=d["batch_nodes"] * d["fanout"][0]
+                                 * d["fanout"][1] * d["d_feat"] * 4)
+    del csr
+
+    d = shapes["full_graph_sm"]
+    g = synthetic.make_graph(n_nodes=d["n_nodes"], n_edges=d["n_edges"], d_feat=d["d_feat"],
+                             n_classes=d["n_classes"], seed=5)
+    bs, bd, _ = graph_prep.bucket_edges(g["src"], g["dst"], n_nodes=d["n_nodes"], n_shards=1,
+                                        bucket_size=d["n_edges_padded"])
+    cora = {"x": g["x"], "src": bs, "dst": bd, "labels": g["y"]}
+    run("full_graph_sm", "full_graph", lambda i: cora, d["n_nodes"], d)
+
+    d = shapes["molecule"]
+
+    def molecules(i):
+        rng = np.random.default_rng((5, i))
+        b, n, e = d["batch"], d["n_nodes"], d["n_edges"]
+        return {"x": rng.standard_normal((b, n, d["d_feat"])).astype(np.float32),
+                "src": rng.integers(0, n, (b, e)).astype(np.int32),
+                "dst": rng.integers(0, n, (b, e)).astype(np.int32),
+                "labels": rng.integers(0, d["n_classes"], b).astype(np.int32)}
+
+    run("molecule", "batched_graphs", molecules, d["batch"], d)
+    torch.cuda.empty_cache()
+    emit("gnn.train", config="pna", lr="cosine 3e-4, warm-up 100, total 10,000", **lines,
+         seconds=time.monotonic() - t_phase, nvidia_smi=ctx["smi"])
+
+
+def phase_gnn(ctx, dev="cuda") -> None:
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ctx.pop("collection", None)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ops.reset_launches()
+    _gnn_parity(ctx, dev)
+    _gnn_products(ctx, dev)
+    _gnn_train(ctx, dev)
+    launches = dict(ops.LAUNCHES)
+    # no kernel of the four lies on the GNN's path (the reference has none there)
+    ctx.setdefault("paths", {})["gnn"] = launches
+    if any(launches.values()):
+        raise AssertionError(f"the GNN path launched {launches}")
+    emit("gnn", launches=launches, seconds=time.monotonic() - t0, nvidia_smi=ctx["smi"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -3660,7 +4198,7 @@ def main(argv=None) -> int:
     table = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
              "experiment": phase_experiment, "paper": phase_paper, "tune": phase_tune,
              "resume": phase_resume, "serve": phase_serve, "mesh": phase_mesh, "lm": phase_lm,
-             "lm_moe": phase_lm_moe, "train": phase_train}
+             "lm_moe": phase_lm_moe, "train": phase_train, "gnn": phase_gnn}
     for p in PHASES:
         if p in only:
             t0 = time.monotonic()

@@ -1,11 +1,12 @@
-"""Architecture registry of the port: ``get_config`` and ``reduced_config``.
+"""Architecture registry of the port: ``get_config``, ``family``,
+``shapes_for`` and ``reduced_config``.
 
-The port holds the paper's own system, ``mirex`` (what `launch.serve`
-reads in search mode), the LMs of `repro.configs` (the dense ``gemma2-2b``,
-``gemma2-27b`` and ``h2o-danube-1.8b`` and the MoE ``qwen3-moe-30b-a3b`` and
-``dbrx-132b``) and the recsys models ``fm``, ``dcn-v2``, ``mind`` and
-``sasrec``. The GNN (``pna``) waits for its slice; asking for it raises
-``NotImplementedError``.
+The port holds every architecture of `repro.configs`: the paper's own
+system, ``mirex`` (what `launch.serve` reads in search mode), the LMs (the
+dense ``gemma2-2b``, ``gemma2-27b`` and ``h2o-danube-1.8b`` and the MoE
+``qwen3-moe-30b-a3b`` and ``dbrx-132b``), the GNN ``pna`` and the recsys
+models ``fm``, ``dcn-v2``, ``mind`` and ``sasrec``. ``input_specs`` and the
+cells built from the shapes wait for the lowering tools (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -21,10 +22,14 @@ from repro_torch.configs.archs import (
     h2o_danube_1_8b,
     mind,
     mirex,
+    pna,
     qwen3_moe_30b_a3b,
     sasrec,
 )
-from repro_torch.configs.base import MirexConfig, RecsysConfig, TransformerConfig
+from repro_torch.configs import shapes as _shapes
+from repro_torch.configs.base import (
+    GNNConfig, MirexConfig, RecsysConfig, ShapeSpec, TransformerConfig,
+)
 
 _MODULES = {
     "dbrx-132b": dbrx_132b,
@@ -32,28 +37,47 @@ _MODULES = {
     "h2o-danube-1.8b": h2o_danube_1_8b,
     "gemma2-27b": gemma2_27b,
     "gemma2-2b": gemma2_2b,
+    "pna": pna,
     "dcn-v2": dcn_v2,
     "fm": fm,
     "mind": mind,
     "sasrec": sasrec,
     "mirex": mirex,
 }
-_LATER_SLICES = {"pna": "GNN"}
 
 ARCH_IDS = tuple(_MODULES)
 
+Config = MirexConfig | TransformerConfig | GNNConfig | RecsysConfig
 
-def get_config(arch: str) -> MirexConfig | TransformerConfig | RecsysConfig:
-    if arch in _LATER_SLICES:
-        raise NotImplementedError(
-            f"the {arch!r} config waits for the {_LATER_SLICES[arch]} slice of the port")
+
+def get_config(arch: str) -> Config:
     try:
         return _MODULES[arch].config()
     except KeyError:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}") from None
 
 
-def reduced_config(arch: str) -> MirexConfig | TransformerConfig | RecsysConfig:
+def family(arch: str) -> str:
+    cfg = get_config(arch)
+    if isinstance(cfg, TransformerConfig):
+        return "lm"
+    if isinstance(cfg, GNNConfig):
+        return "gnn"
+    if isinstance(cfg, RecsysConfig):
+        return "recsys"
+    return "mirex"
+
+
+def shapes_for(arch: str) -> dict[str, ShapeSpec]:
+    return {
+        "lm": _shapes.LM_SHAPES,
+        "gnn": _shapes.GNN_SHAPES,
+        "recsys": _shapes.RECSYS_SHAPES,
+        "mirex": _shapes.MIREX_SHAPES,
+    }[family(arch)]
+
+
+def reduced_config(arch: str) -> Config:
     """Tiny same-family config for CPU smoke tests, as `repro.configs`
     reduces it: same structure (window pattern, soft caps, GQA, MoE-ness,
     interaction type), reduced dims."""
@@ -77,6 +101,8 @@ def reduced_config(arch: str) -> MirexConfig | TransformerConfig | RecsysConfig:
             opt_dtype="float32",
             q_block=16,
         )
+    if isinstance(cfg, GNNConfig):
+        return dataclasses.replace(cfg, n_layers=2, d_hidden=16)
     if isinstance(cfg, RecsysConfig):
         return dataclasses.replace(
             cfg,

@@ -1,8 +1,7 @@
 """Config dataclasses of the port: the paper's own system, ``MirexConfig``,
-the decoder-only LM, ``TransformerConfig``, and the recsys models,
-``RecsysConfig`` (copies of `repro.configs.base`).
-
-The GNN config waits for the GNN slice of the port.
+the decoder-only LM, ``TransformerConfig``, the GNN, ``GNNConfig``, the
+recsys models, ``RecsysConfig``, and one (architecture x input-shape) cell,
+``ShapeSpec`` (copies of `repro.configs.base`).
 """
 
 from __future__ import annotations
@@ -83,6 +82,20 @@ class TransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    """PNA-style message-passing network."""
+
+    name: str
+    n_layers: int
+    d_hidden: int
+    aggregators: tuple[str, ...] = ("mean", "max", "min", "std")
+    scalers: tuple[str, ...] = ("identity", "amplification", "attenuation")
+    n_classes: int = 16
+    delta: float = 1.0  # mean log-degree normalizer (dataset constant)
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     """Sparse-embedding + feature-interaction ranking/retrieval model."""
 
@@ -104,3 +117,15 @@ class RecsysConfig:
     seq_len: int = 0
     n_items: int = 3_000_000
     dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (architecture x input-shape) cell."""
+
+    name: str
+    kind: str  # train | prefill | decode | full_graph | minibatch | batched_graphs | rec_train | rec_serve | retrieval | scan
+    dims: dict
+
+    def __str__(self) -> str:
+        return f"{self.name}({self.kind}:{self.dims})"

@@ -4,7 +4,7 @@ The reference keeps collection statistics, top-k states, epilogue specs and
 dense vectors, LM parameters and KV caches as arrays; ``np.asarray`` of
 them gives numpy arrays, and these functions turn those into the port's
 tensors on a given device, dtypes unchanged.
-The training state comes across the same way: recsys parameters
+The training state comes across the same way: recsys and GNN parameters
 (:func:`tree_from_numpy`), an ``AdamWState`` (:func:`adamw_from_numpy`) and
 an ``ErrorFeedbackState`` (:func:`ef_from_numpy`), so that both packages
 start a step from the same numbers. (Checkpoints need no conversion: both
@@ -92,8 +92,11 @@ def cache_from_numpy(cache, device="cpu") -> dict:
 
 
 def tree_from_numpy(tree, device="cpu") -> dict:
-    """Any nested dict of float32 or bfloat16 arrays (recsys parameters,
-    gradients) -> the same dict of tensors on ``device``, bit for bit."""
+    """Any nested dict of float32 or bfloat16 arrays (recsys and GNN
+    parameters — `repro.models.gnn.init_params`'s stacked ``layers`` too —
+    and gradients) -> the same dict of tensors on ``device``, bit for bit
+    (float64 arrays, as the reference makes them under ``jax_enable_x64``,
+    come across as float64)."""
     return _tree(tree, device)
 
 

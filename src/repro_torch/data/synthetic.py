@@ -19,8 +19,10 @@ seconds instead of minutes:
 numpy code as it is, and so are the recsys batches (:func:`make_recsys_batch`,
 :func:`make_item_sequences`). :func:`make_links` (the anchor job's link
 graph) draws its destinations through the same replayed ``choice`` and
-fills its anchor rows by one masked assignment. The graph generator waits
-for the GNN slice.
+fills its anchor rows by one masked assignment. :func:`make_graph` (the
+GNN's power-law graph) draws its sources through the same replayed
+``choice`` and sorts the edges by destination on ``device`` (a stable sort
+has one answer, the reference's ``np.argsort(kind="stable")``).
 """
 
 from __future__ import annotations
@@ -228,6 +230,29 @@ def make_lm_batch(
     return {
         "tokens": tokens[:, :-1].astype(np.int32),
         "labels": tokens[:, 1:].astype(np.int32),
+    }
+
+
+def make_graph(
+    *, n_nodes: int, n_edges: int, d_feat: int, n_classes: int = 16, seed: int = 5,
+    device="cpu",
+) -> dict[str, np.ndarray]:
+    """Random power-law graph (COO edge list, sorted by dst for segment ops).
+
+    The reference's draws in its order: sources by ``rng.choice(n_nodes,
+    p=w)`` with ``w ∝ rank^-0.8`` (replayed by :func:`_zipf_tokens`), then
+    destinations, features and labels.
+    """
+    rng = np.random.default_rng(seed)
+    src = _zipf_tokens(rng, n_edges, n_nodes, 0.8, device)
+    dst = rng.integers(0, n_nodes, size=n_edges, dtype=np.int32)
+    order = torch.sort(torch.as_tensor(dst, device=device), stable=True).indices
+    order = order.cpu().numpy()
+    return {
+        "src": src[order],
+        "dst": dst[order],
+        "x": rng.standard_normal((n_nodes, d_feat)).astype(np.float32),
+        "y": rng.integers(0, n_classes, size=n_nodes, dtype=np.int32),
     }
 
 

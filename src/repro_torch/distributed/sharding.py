@@ -132,6 +132,25 @@ def rules_for_mesh(mesh: Mesh) -> AxisRules:
     return AxisRules(dp=tuple(names[:-1]) or (names[0],), tp=names[-1])
 
 
+def all_gather_parts(parts: list, dim: int = 0) -> torch.Tensor:
+    """An all-gather: the shards' parts joined in shard order on the first
+    one's device; one part is returned as it is (no copy)."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
+def psum_parts(parts: list) -> torch.Tensor:
+    """A psum: the shards' partials added left to right on the first one's
+    device."""
+    dev = parts[0].device
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p.to(dev)
+    return out
+
+
 def constrain(x, mesh: Mesh, rules: AxisRules, *logical: str | None):
     """The identity. The reference pins a layout with
     ``with_sharding_constraint``; torch has no sharding annotations, and the

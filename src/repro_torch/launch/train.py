@@ -18,11 +18,14 @@ The reference's contract:
   {topk,sign}``, `repro_torch.optim.compress`).
 
 It trains any LM arch (the reduced config by default; ``--full`` takes the
-published one) and the recsys archs, on one ``dp`` shard and one ``tp``
+published one) and the recsys archs on one ``dp`` shard and one ``tp``
 shard, the reference's ``(1, 1)`` default (a larger mesh waits for the
 multi-card slice, ROADMAP queue 1 item 9). A step reads the host once:
 ``float(metrics["loss"])``. TF32 stays off (PyTorch's default), so float32
-runs on the card hold to the CPU's.
+runs on the card hold to the CPU's. `train` does not train the GNN (nor
+does the reference's): its steps are :func:`make_train_step` over
+:func:`build_gnn`'s loss at ``GNN_LR``, as the reference's cells build
+them.
 
 Same flags as `repro.launch.train` plus ``--device`` (default ``cuda``;
 without a card and without ``--device cpu`` it raises instead of running on
@@ -38,12 +41,13 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.configs.base import RecsysConfig, TransformerConfig
+from repro_torch.configs.base import GNNConfig, RecsysConfig, TransformerConfig
 from repro_torch.data import synthetic
 from repro_torch.data.loader import ShardedBatchLoader
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import rules_for_mesh
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import compress
@@ -89,6 +93,43 @@ def build_recsys(cfg: RecsysConfig, mesh, rules, *, batch: int, seed: int):
         return recsys_lib.init_params(cfg, generator, device=device)
 
     return loss_fn, make_batch, init
+
+
+# the cells' schedule (the reference's `launch/cells.py:68`)
+GNN_LR = cosine_schedule(3e-4, warmup=100, total=10_000)
+
+
+def build_gnn(cfg: GNNConfig, kind: str, mesh=None, rules=None):
+    """The loss of a GNN cell, ``loss_fn(params, batch) -> (loss, {"loss"})``,
+    as the reference's cells build it (`launch/cells.py:201-236`) for the
+    shape kinds of `configs.shapes.GNN_SHAPES`:
+
+    * ``"full_graph"``: ``make_sharded_full_graph(mesh, rules, cfg)``
+      (bucketed) over ``x [N, F]``, bucketed ``src`` / ``dst``, ``labels [N]``;
+    * ``"minibatch"``: ``forward_sampled`` over ``seed_x``, ``hop1_x``,
+      ``hop2_x`` (`data.sampler.sample_batch`'s), ``labels [B]``;
+    * ``"batched_graphs"``: ``forward_batched_graphs`` over ``x [B, N, F]``,
+      ``src`` / ``dst [B, E]``, ``labels [B]``.
+    """
+    if kind == "full_graph":
+        fwd = gnn_lib.make_sharded_full_graph(mesh, rules, cfg)
+
+        def logits(params, b):
+            return fwd(params, b["x"], b["src"], b["dst"])
+    elif kind == "minibatch":
+        def logits(params, b):
+            return gnn_lib.forward_sampled(params, b["seed_x"], b["hop1_x"], b["hop2_x"], cfg)
+    elif kind == "batched_graphs":
+        def logits(params, b):
+            return gnn_lib.forward_batched_graphs(params, b["x"], b["src"], b["dst"], cfg)
+    else:
+        raise ValueError(f"unknown GNN shape kind {kind!r}")
+
+    def loss_fn(params, b):
+        loss = gnn_lib.xent_loss(logits(params, b), b["labels"])
+        return loss, {"loss": loss}
+
+    return loss_fn
 
 
 def value_and_grad(loss_fn, params, batch):

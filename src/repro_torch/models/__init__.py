@@ -1,3 +1,4 @@
-"""Models of the port: the dense decoder-only transformer (LM serving:
-prefill, then decode over a KV cache), its attention and shared pieces.
-The MoE, GNN, recsys and embedding models wait for their slices."""
+"""Models of the port: the decoder-only transformer, dense and MoE (LM
+serving and training), its attention and shared pieces, the recsys models
+and their embedding lookups, and the GNN (PNA) with its deterministic
+segment reduces (`segment`)."""

@@ -23,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import segment
+
 
 def jax_index(ids: torch.Tensor, n: int) -> torch.Tensor:
     """The row JAX's indexing reads for ``ids`` into ``n`` rows: negative
@@ -74,22 +76,19 @@ def embedding_bag_ragged(
 ) -> torch.Tensor:
     """Ragged EmbeddingBag via a segment reduce -> [num_bags, D]; a segment
     id outside ``[0, num_bags)`` is dropped, an empty bag is 0 (``sum``,
-    ``mean``) or -inf (``max``), as ``jax.ops.segment_*`` give them."""
-    e = F.embedding(jax_index(values.long(), table.shape[0]), table)
-    seg = segment_ids.long()
-    keep = (seg >= 0) & (seg < num_bags)
-    e, seg = e[keep], seg[keep]
-    d = table.shape[1]
-    if mode in ("sum", "mean"):
-        s = torch.zeros((num_bags, d), dtype=e.dtype, device=e.device).index_add_(0, seg, e)
-        if mode == "sum":
-            return s
-        n = torch.zeros((num_bags,), dtype=e.dtype, device=e.device).index_add_(
-            0, seg, torch.ones_like(seg, dtype=e.dtype))
-        return s / torch.clamp(n, min=1.0)[:, None]
+    ``mean``) or -inf (``max``), as ``jax.ops.segment_*`` give them. The
+    reduce is `repro_torch.models.segment`'s (sorted runs, no atomics), and
+    so is the lookup's backward (`segment.gather`; `F.embedding`'s gave
+    other bits from run to run on an H100 at 200,000 ids into 500 rows), so
+    a card gives the same bits every call, gradients included."""
+    e = segment.gather(table, jax_index(values.long(), table.shape[0]))
+    seg = segment.segments(segment_ids, num_bags)
+    if mode == "sum":
+        return seg.sum(e)
+    if mode == "mean":
+        return seg.sum(e) / torch.clamp(seg.count(e.dtype), min=1.0)[:, None]
     if mode == "max":
-        out = torch.full((num_bags, d), -torch.inf, dtype=e.dtype, device=e.device)
-        return out.scatter_reduce(0, seg[:, None].expand(-1, d), e, "amax")
+        return seg.reduce(seg.take(e), "max")
     raise ValueError(mode)
 
 

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import all_gather_parts, psum_parts
 from repro_torch.models.common import activation_fn, matmul_f32
 
 MODES = ("train", "seq", "replicated")
@@ -159,25 +160,6 @@ def moe_ffn_local(
     return out, aux
 
 
-def _gather(parts: list, dim: int) -> torch.Tensor:
-    """An all-gather: the shards' parts joined in shard order on the first
-    one's device; one part is returned as it is (no copy)."""
-    if len(parts) == 1:
-        return parts[0]
-    dev = parts[0].device
-    return torch.cat([p.to(dev) for p in parts], dim=dim)
-
-
-def _sum(parts: list) -> torch.Tensor:
-    """A psum: the shards' partials added left to right on the first one's
-    device."""
-    dev = parts[0].device
-    out = parts[0]
-    for p in parts[1:]:
-        out = out + p.to(dev)
-    return out
-
-
 def make_moe_layer(
     mesh,
     dp_axes: tuple[str, ...],
@@ -250,16 +232,16 @@ def make_moe_layer(
                 return (w_gate[ex, :, fs[di]].to(dev), w_up[ex, :, fs[di]].to(dev),
                         w_down[ex, fs[di]].to(dev))
             # ZeRO-3: gather the d_ff-sharded weights just in time
-            return (_gather([w_gate[ex, :, sl].to(dev) for sl in fs], 2),
-                    _gather([w_up[ex, :, sl].to(dev) for sl in fs], 2),
-                    _gather([w_down[ex, sl].to(dev) for sl in fs], 1))
+            return (all_gather_parts([w_gate[ex, :, sl].to(dev) for sl in fs], 2),
+                    all_gather_parts([w_up[ex, :, sl].to(dev) for sl in fs], 2),
+                    all_gather_parts([w_down[ex, sl].to(dev) for sl in fs], 1))
 
         partial, aux = {}, {}
         for di in range(n_dp):
             for ti in range(n_tp):
                 dev = device(di, ti)
                 if mode == "seq":  # all-gather the sequence over tp
-                    xl = _gather([x_local(di, tj).to(dev) for tj in range(n_tp)], 1)
+                    xl = all_gather_parts([x_local(di, tj).to(dev) for tj in range(n_tp)], 1)
                 else:
                     xl = x_local(di, ti)
                 bl, sl, _ = xl.shape
@@ -271,19 +253,20 @@ def make_moe_layer(
 
         if mode == "replicated":
             dps = range(n_dp) if fsdp_experts else range(1)
-            y = _sum([partial[di, ti] for di in dps for ti in range(n_tp)])
+            y = psum_parts([partial[di, ti] for di in dps for ti in range(n_tp)])
             return y, aux[0, 0]
         if mode == "train":
-            y = _gather([_sum([partial[di, ti] for ti in range(n_tp)]) for di in range(n_dp)], 0)
+            y = all_gather_parts([psum_parts([partial[di, ti] for ti in range(n_tp)])
+                                  for di in range(n_dp)], 0)
         else:  # seq: reduce-scatter the tp partials back along the sequence
             blocks = []
             for di in range(n_dp):
-                full = _sum([partial[di, ti] for ti in range(n_tp)])
-                blocks.append(_gather([full[:, ti * s_loc:(ti + 1) * s_loc]
+                full = psum_parts([partial[di, ti] for ti in range(n_tp)])
+                blocks.append(all_gather_parts([full[:, ti * s_loc:(ti + 1) * s_loc]
                                        for ti in range(n_tp)], 1))
-            y = _gather(blocks, 0)
+            y = all_gather_parts(blocks, 0)
         home = partial[0, 0].device
-        aux_mean = _sum([aux[di, 0].to(home) for di in range(n_dp)]) / n_dp
+        aux_mean = psum_parts([aux[di, 0].to(home) for di in range(n_dp)]) / n_dp
         return y, aux_mean
 
     return layer

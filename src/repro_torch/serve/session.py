@@ -33,6 +33,7 @@ from repro_torch import cluster
 from repro_torch.core import anchors, packing, pipeline, scan, topk
 from repro_torch.core.scoring import PAD_TOKEN, CollectionStats, Scorer, get_scorer
 from repro_torch.device import resolve_device
+from repro_torch.kernels.score_topk import STAGE_BYTES
 from repro_torch.tune import config as tune_config
 
 
@@ -250,7 +251,10 @@ class DenseSession:
     map (``dense_cosine``) has the resident vectors mapped once, here: rows
     are mapped independently, so the bits are those of mapping each chunk;
     each query block is mapped per call, and the block is then scanned as a
-    dot product against the mapped corpus.
+    dot product against the mapped corpus. On a card the mapped vectors are
+    zero-padded once to the kernel's row (``STAGE_BYTES``, 32 float32), and
+    each query block to the same width, so the kernel's wrapper copies
+    nothing per block; zeros change no dot product and no norm.
     """
 
     kind = "dense"
@@ -277,8 +281,18 @@ class DenseSession:
         if vecs.shape[0] % chunk_size:
             raise ValueError(f"{vecs.shape[0]} docs not divisible by chunk {chunk_size}")
         rows = self.scorer.row_map
-        self._vectors = rows(vecs) if rows is not None else vecs
+        self._dim = int(vecs.shape[1])
+        self._vectors = self._pad(rows(vecs) if rows is not None else vecs)
         self._dot = get_scorer("dense_dot")
+
+    def _pad(self, x: torch.Tensor) -> torch.Tensor:
+        """Zero columns up to the kernel's row width, on a card only: the
+        CPU's plain version reads rows of any width, and a wider resident
+        corpus would cost its memory for nothing."""
+        if x.device.type != "cuda":
+            return x
+        width = -(-x.shape[1] * 4 // STAGE_BYTES) * STAGE_BYTES // 4
+        return torch.nn.functional.pad(x, (0, width - x.shape[1])) if width != x.shape[1] else x
 
     @property
     def n_docs(self) -> int:
@@ -286,7 +300,8 @@ class DenseSession:
 
     @property
     def dim(self) -> int:
-        return int(self._vectors.shape[1])
+        """The vectors' width as the caller gave it (before any pad)."""
+        return self._dim
 
     def search(self, q_block: np.ndarray) -> topk.TopKState:
         """Scan one padded query block; returns once the results are on the
@@ -295,6 +310,6 @@ class DenseSession:
         if self.scorer.row_map is not None:
             q = self.scorer.row_map(q)
         state = scan.search_local(
-            q, self._vectors, self._dot, k=self.k, chunk_size=self.chunk_size
+            self._pad(q), self._vectors, self._dot, k=self.k, chunk_size=self.chunk_size
         )
         return _to_host(state)

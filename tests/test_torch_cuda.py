@@ -28,8 +28,11 @@ the reduced MoE LM on the card is within 1e-4 / 1e-5 of the CPU and its
 decode step makes no host sync. Training: the flash kernel under autograd
 gives the CPU's gradients (float32 within 1e-4 / 1e-5, bfloat16 within
 3e-2), and two driver runs and a crash resumed from a checkpoint give the
-same bytes on the card. ``chip_smoke.py`` makes the same checks at the full
-width.
+same bytes on the card. The dense session pads its corpus once (the
+wrapper's bits, no corpus-sized allocation a block); the ragged bag and
+the reduced GNN in every regime repeat their bytes on the card, and the GNN
+holds to the CPU (float64 within 1e-5, float32 logits within 2e-4 / 2e-5).
+``chip_smoke.py`` makes the same checks at the full width.
 """
 
 import numpy as np
@@ -910,10 +913,149 @@ def test_cuda_training_steps_are_deterministic(tmp_path):
 
 
 def _bits(t):
-    return t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t.contiguous().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# the dense session's resident pad; the GNN and the segment reduce
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 24, 40])
+def test_cuda_dense_session_pads_its_corpus_once(dim):
+    """A row narrower than the kernel's 128-byte stage: the session pads
+    its resident vectors once, so a block gives the bits of the wrapper's
+    own pad (the path before) and allocates nothing the corpus's size."""
+    from repro_torch.core import scan
+    from repro_torch.serve.session import DenseSession
+
+    dev = _card()
+    rng = np.random.default_rng(dim)
+    vecs = rng.standard_normal((1 << 20, dim)).astype(np.float32)
+    q = rng.standard_normal((64, dim)).astype(np.float32)
+    for scorer in ("dense_dot", "dense_cosine"):
+        sess = DenseSession(vecs, scorer, k=100, chunk_size=4096, device=dev)
+        assert sess.dim == dim and sess._vectors.shape[1] == 32 * (-(-dim // 32))
+        before = scan.search_local(torch.as_tensor(q, device=dev),
+                                   torch.as_tensor(vecs, device=dev),
+                                   scoring.get_scorer(scorer), k=100, chunk_size=4096)
+        sess.search(q)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got = sess.search(q)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(dev) - base < vecs.nbytes
+        assert torch.equal(got.scores, before.scores.cpu()), scorer
+        assert torch.equal(got.ids, before.ids.cpu()), scorer
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_ragged_is_deterministic():
+    """Two calls of the ragged bag (sum, mean, max) and their gradients give
+    the same bytes on the card, and the CPU's values within 1e-6."""
+    from repro_torch.models import embedding
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    table = torch.tensor(rng.standard_normal((500, 64)).astype(np.float32))
+    values = torch.tensor(rng.integers(0, 500, 200_000))
+    segs = torch.tensor(np.sort(rng.integers(0, 1000, 200_000)))
+    for mode in ("sum", "mean", "max"):
+        runs = []
+        for _ in range(2):
+            t = table.to(dev).requires_grad_(True)
+            out = embedding.embedding_bag_ragged(t, values.to(dev), segs.to(dev), 1000,
+                                                 mode=mode)
+            grad, = torch.autograd.grad(out.sum() * 0.5, t)
+            runs.append((out.detach().cpu(), grad.cpu()))
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), mode
+        want = embedding.embedding_bag_ragged(table, values, segs, 1000, mode=mode)
+        torch.testing.assert_close(runs[0][0], want, rtol=1e-6, atol=1e-6)
+
+
+def _gnn_regimes(dev, dtype):
+    """Reduced-``pna`` logits functions of every regime on ``dev``, from one
+    seeded graph and batch: full graph; bucketed and scatter on (1,) and
+    (4,) meshes of ``dev``; sampled; batched."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import graph_prep, synthetic
+    from repro_torch.distributed.sharding import Mesh, rules_for_mesh
+    from repro_torch.models import gnn
+
+    cfg = reduced_config("pna")
+    g = synthetic.make_graph(n_nodes=64, n_edges=512, d_feat=9, seed=4)
+    rng = np.random.default_rng(1)
+    # random features: no fanout group of repeated neighbours, whose zero
+    # variance gives the reference's own NaN (tests/test_torch_gnn.py)
+    sb = {"seed_x": rng.standard_normal((16, 9)), "hop1_x": rng.standard_normal((16, 5, 9)),
+          "hop2_x": rng.standard_normal((16, 5, 3, 9))}
+    mol = (rng.standard_normal((4, 10, 9)), rng.integers(0, 10, (4, 20)),
+           rng.integers(0, 10, (4, 20)))
+
+    def t(a):
+        a = torch.as_tensor(np.asarray(a))
+        return (a.to(dtype) if a.is_floating_point() else a).to(dev)
+
+    out = {"full": lambda p: gnn.forward_full_graph(p, t(g["x"]), t(g["src"]), t(g["dst"]),
+                                                    cfg),
+           "sampled": lambda p: gnn.forward_sampled(p, t(sb["seed_x"]), t(sb["hop1_x"]),
+                                                    t(sb["hop2_x"]), cfg),
+           "batched": lambda p: gnn.forward_batched_graphs(p, *map(t, mol), cfg)}
+    for n in (1, 4):
+        arr = np.empty((n,), dtype=object)
+        arr.fill(torch.device(dev))
+        mesh = Mesh(arr, ("data",))
+        bs, bd, _ = graph_prep.bucket_edges(g["src"], g["dst"], n_nodes=64, n_shards=n)
+        for mode, (s, d) in (("bucketed", (bs, bd)), ("scatter", (g["src"], g["dst"]))):
+            fwd = gnn.make_sharded_full_graph(mesh, rules_for_mesh(mesh), cfg, mode=mode)
+            out[f"{mode}{n}"] = (lambda f, s, d: lambda p: f(p, t(g["x"]), t(s), t(d)))(fwd, s, d)
+    return cfg, out, t(g["y"] % cfg.n_classes)
+
+
+def _gnn_logits_and_grads(dev, dtype):
+    from repro_torch.models import gnn
+
+    cfg, regimes, y = _gnn_regimes(dev, dtype)
+    params = gnn.init_params(cfg, 9, torch.Generator().manual_seed(0))
+    res = {}
+    for name, fn in regimes.items():
+        p = {k: (v.to(dev, dtype).requires_grad_(True) if not isinstance(v, dict) else
+                 {kk: vv.to(dev, dtype).requires_grad_(True) for kk, vv in v.items()})
+             for k, v in params.items()}
+        logits = fn(p)
+        labels = y[:logits.shape[0]]
+        leaves = _tree_leaves(p)
+        grads = torch.autograd.grad(gnn.xent_loss(logits, labels), leaves)
+        res[name] = [logits.detach().cpu()] + [gr.cpu() for gr in grads]
+    return res
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_matches_the_cpu_and_repeats_its_bytes():
+    """Reduced ``pna`` in every regime on the card against the CPU: float64
+    logits and every gradient leaf within 1e-5 (the CPU tests' TOL); float32
+    logits within 1e-5 of their largest (float32 rounding grows ~60x a
+    layer under the reference's init, so an element near zero may miss an
+    elementwise limit); two runs on the card give the same bytes."""
+    _card()
+    for dtype in (torch.float64, torch.float32):
+        card = _gnn_logits_and_grads("cuda", dtype)
+        cpu = _gnn_logits_and_grads("cpu", dtype)
+        again = _gnn_logits_and_grads("cuda", dtype)
+        for name in cpu:
+            if dtype == torch.float64:
+                for got, want in zip(card[name], cpu[name]):
+                    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                               msg=lambda m: f"{name}: {m}")
+            else:
+                got, want = card[name][0], cpu[name][0]
+                assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), name
+            for a, b in zip(card[name], again[name]):
+                assert torch.equal(_bits(a), _bits(b)), name

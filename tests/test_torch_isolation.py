@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                    "configs/archs/dbrx_132b.py", "optim/adamw.py", "optim/compress.py",
                    "data/loader.py", "launch/train.py", "models/embedding.py",
                    "models/recsys.py", "configs/archs/fm.py", "configs/archs/dcn_v2.py",
-                   "configs/archs/mind.py", "configs/archs/sasrec.py"):
+                   "configs/archs/mind.py", "configs/archs/sasrec.py", "models/gnn.py",
+                   "models/segment.py", "data/graph_prep.py", "data/sampler.py",
+                   "configs/archs/pna.py", "configs/shapes.py"):
         assert module in names
     examples = {p.name for p in files if p.parent == ROOT / "examples"}
     assert {"torch_quickstart.py", "torch_train_lm.py",
@@ -70,6 +72,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.launch.experiment, repro_torch.launch.mesh\n"
         "import repro_torch.distributed.sharding, repro_torch.models.moe\n"
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.models.recsys\n"
+        "import repro_torch.models.gnn, repro_torch.data.sampler, repro_torch.data.graph_prep\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
