@@ -57,22 +57,22 @@ code (nothing is caught and passed over):
                   must be the synchronous run's. Each run reports its scan
                   span, docs/s, its busy share (the kernel calls' CUDA-event
                   time, on the stream each ran on, over that span), the
-                  executor's spans and its peak device memory. Then the
-                  same run with ``token_pack="auto"`` (17-bit planes) on the
-                  same collection: run files and checkpoint bytes identical
-                  to the unpacked run's, one launch a segment. Then
-                  ``experiment.streamed``: `run_sharded_scan_job` over the
-                  same corpus kept on the host (pinned once, before the
+                  executor's spans and its peak device memory. Then
+                  ``experiment.packed``: the pipelined run once more with
+                  ``token_pack="auto"`` (17-bit planes, packed by the
+                  runner on the host): run files and checkpoint bytes
+                  identical to the unpacked runs', one launch a segment.
+                  Then ``experiment.streamed``: `run_sharded_scan_job` over
+                  the same corpus kept on the host (pinned once, before the
                   scan), streamed to the card by `prefetch_segments`, and
                   ``experiment.job``: the same job over the corpus on the
                   card. Both states and checkpoints must be the runner's
                   bit for bit; the streamed run's device memory above the
                   collection must stay within the device-resident job's
                   plus (prefetch_depth + 1) segments plus half a segment.
-                  Then ``experiment.pipelined_again``: the pipelined runner
-                  once more (the same files), and `torch.profiler` over one
-                  device-resident job: the device time a segment of the scan
-                  kernel, its list merge and everything else.
+                  Then ``experiment.profile``: `torch.profiler` over one
+                  device-resident job: the device time a segment of the
+                  scan kernel, its list merge and everything else.
 5. ``paper``      the paper's preparation and baseline jobs: the anchor-text
                   job (``make_links`` at 2^23 pages, 2^25 links of up to 6
                   tokens; ``extract_anchors`` on the card to 64 tokens a
@@ -203,7 +203,7 @@ code (nothing is caught and passed over):
                   CPU's, no leaf without a gradient, and a control with the
                   bare kernel (no autograd function) must fail.
                   ``train.full``: full width and depth (24 layers, 1.83e9
-                  parameters, bf16, float32 moments, remat), 6 steps of 2 x
+                  parameters, bf16, float32 moments, remat), 4 steps of 2 x
                   8,192 tokens: step seconds, tokens/s, model FLOP/s against
                   the bf16 peak (the count printed), peak memory, the flash
                   launches (forward and remat's recompute), then one
@@ -251,8 +251,21 @@ code (nothing is caught and passed over):
                   232,965 nodes and 114,615,892 edges; the host's share of
                   a step), cora's full graph and 128 molecules: step
                   seconds, rows a second, losses. Then the phase's seconds.
+14. ``lower``     the lowering tools, host work on meta tensors (no kernel
+                  may launch): `launch.dryrun` over every (arch x shape)
+                  cell on the one-H100 mesh (every cell must be ok) and on
+                  the 16x16 mesh (a cell that fails must name ROADMAP queue
+                  1 item 3), in ``LOWER_WORKERS`` processes; the counts
+                  of ok cells and of each failure reason. Then this
+                  script's own cells counted at the shapes its phases ran
+                  (`launch.opcount`), each one's `launch.roofline` bound,
+                  bottleneck and counted FLOPs beside the time this call
+                  measured, and for train-danube-1.8b and gnn-products-fwd
+                  the reckoned peak beside ``max_memory_allocated``. Under
+                  ``--only lower`` the bounds stand alone.
 
-Each phase's wall time follows it (``phase_time``). The last three lines
+Each phase's wall time follows it (``phase_time``), and every line carries
+``at_s``, the seconds since the script started. The last three lines
 are the card's ``nvidia-smi`` name and power limit, a
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
 Artifacts go under ``build/chip_smoke/``. Without a CUDA device, or without
@@ -273,24 +286,19 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 PHASES = ("env", "build", "kernels", "experiment", "paper", "tune", "resume", "serve", "mesh",
-          "lm", "lm_moe", "train", "gnn")
+          "lm", "lm_moe", "train", "gnn", "lower")
 
-# H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet) and the INT32
-# compare/add rate of the CUDA cores, 64 results per clock per SM for compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput) x 132 SMs x 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# and the FP32 rate: 128 fused multiply-adds per clock per SM for compute
-# capability 9.0 (same table), 2 operations each
-FP32_OPS_PER_S = 128 * 2 * 132 * 1.98e9
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# H100 SXM peaks at 700 W, each with its source, in one place
+# (`repro_torch.launch.roofline`): the HBM3 rate, the INT32 compare/add rate
+# of the CUDA cores, the FP32 rate, the bfloat16 and TF32 dense tensor-core
+# rates. Importing it fails when the repository is not beside the script.
+from repro_torch.launch.roofline import HBM_BW, PEAKS  # noqa: E402
+
 # the repo's ``dense_scan`` shape (src/repro/configs/shapes.py:89-91) at the
 # ``mirex`` config's dense_dim (src/repro/configs/archs/mirex.py)
 DENSE_DOCS, DENSE_QUERIES = 1 << 24, 4096
 DEEPER = 8  # reference rankings this much deeper show near-ties across the cut
-# bfloat16 and TF32 dense tensor-core peaks (NVIDIA data sheet, H100 SXM at 700 W)
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
 # the kernels' tolerances against their plain versions (the reference's own,
 # tests/test_kernels.py): (rtol, atol) by dtype name
 FLASH_TOL = {"float32": (3e-4, 3e-5), "bfloat16": (3e-2, 3e-2)}
@@ -321,8 +329,23 @@ LM_ATTN_SLACK = 4.0
 LM_BATCH, LM_PROMPT, LM_SLOTS, LM_DECODE, CHECK_PROMPT = 4, 8192, 8704, 128, 1024
 
 
+_START = time.monotonic()
+
+
 def emit(phase: str, **payload) -> None:
-    print(json.dumps({"phase": phase, **payload}), flush=True)
+    """One JSON line; ``at_s`` (seconds since the script started) dates it,
+    so that the gaps between lines give each part of a phase its time."""
+    print(json.dumps({"phase": phase, **payload, "at_s": time.monotonic() - _START}), flush=True)
+
+
+def _bound(cost: dict) -> tuple[float, str, float, float]:
+    """``(bound_ms, bound_by, ops, bytes)`` of a kernel module's ``cost()``
+    (the least work of a call, PERF.md's Bound column): the larger of its
+    operations at their class's peak and its bytes at the HBM rate."""
+    ops_s = sum(n / PEAKS[c] for c, n in cost["flops"].items())
+    bytes_s = cost["bytes"] / HBM_BW
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes",
+            sum(cost["flops"].values()), cost["bytes"])
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -561,17 +584,15 @@ def phase_kernels(ctx) -> None:
     plain_ms = cuda_ms(lambda: lexical_scan.lexical_scan_topk_ref(
         *args, modes=modes, k=k, block_d=16_384), reps=3)
     n_q, l_q = q.shape
-    # the least work of these inputs: every input read once and the outputs
-    # written once; one lookup per token and one epilogue + compare per
-    # (model, query, doc), counted at the INT32 rate (the epilogue's float
-    # operations run at twice it); and the first design's compare-all count
-    # beside it (one compare + one add per (query term, token) pair)
-    n_bytes = sum(t.numel() * t.element_size() for t in args) + 2 * len(modes) * n_q * k * 4
-    ops_count = n_seg * l_d + len(modes) * n_q * n_seg
+    # the least work of these inputs (`lexical_scan.cost`: every input read
+    # once and the outputs written once; one lookup per token and one
+    # epilogue + compare per (model, query, doc), counted at the INT32 rate,
+    # the epilogue's float operations running at twice it); and the first
+    # design's compare-all count beside it (one compare + one add per
+    # (query term, token) pair)
+    bound_ms, bound_by, ops_count, n_bytes = _bound(lexical_scan.cost(*args, k=k))
     compare_all = 2 * n_q * l_q * n_seg * l_d
-    bound_ms = 1e3 * max(ops_count / INT32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    bound_by = "operations" if ops_count / INT32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
-    bound_compare_all_ms = 1e3 * compare_all / INT32_OPS_PER_S
+    bound_compare_all_ms = 1e3 * compare_all / PEAKS["other"]
     # a serving block's shape on the same segment: 128 queries, one model
     q128 = torch.as_tensor(synthetic.make_queries(corpus, n_queries=128, seed=2), device=dev)
     m128, w128, ab128 = scoring.lexical_epilogues((scoring.get_scorer("ql_lm"),), q128, stats)
@@ -687,12 +708,9 @@ def _packed_lexical_kernels(ctx, mixed, corpus, args, modes, k, kern, unpacked_m
     ms_128 = {name: cuda_ms(lambda tok=tok, ps=ps: lexical_scan.lexical_scan_topk_cuda(
         q128, w128, ab128, tok, dl, modes=m128, k=k, block_d=16_384, tile_d=16, pack_spec=ps),
         reps=20, warmup=2) for name, tok, ps in (("packed", p, spec), ("unpacked", d, None))}
-    n_q = q.shape[0]
     # the unpacked row's bound with the packed tokens' bytes
-    n_bytes = sum(t.numel() * t.element_size() for t in pargs) + 2 * len(modes) * n_q * k * 4
-    ops_count = n_seg * l_d + len(modes) * n_q * n_seg
-    bound_ms = 1e3 * max(ops_count / INT32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    bound_by = "operations" if ops_count / INT32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
+    bound_ms, bound_by, ops_count, n_bytes = _bound(
+        lexical_scan.cost(*pargs, k=k, pack_spec=spec))
     ctx["kernels"]["lexical_scan_topk[packed]"] = {
         "name": "lexical_scan_topk[packed]",
         "route": "cuda",
@@ -874,12 +892,9 @@ def _dense_kernels(ctx) -> None:
     # products per multiply-add on the tensor cores; the CUDA cores' FP32
     # pipe (one FMA per multiply-add, the earlier CUDA-core design's bound)
     # beside it
-    ops_count = 2 * n_q * n_d * dim
-    n_bytes = (q.numel() + corpus.numel()) * 4 + n_q * k * 8
-    bound_ms = 1e3 * max(3 * ops_count / TF32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    bound_by = "operations" if 3 * ops_count / TF32_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S \
-        else "bytes"
-    bound_fp32_pipe_ms = 1e3 * max(ops_count / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    bound_ms, bound_by, tf32_ops, n_bytes = _bound(score_topk.cost(q, corpus, k=k))
+    ops_count = tf32_ops // 3
+    bound_fp32_pipe_ms = 1e3 * max(ops_count / PEAKS["f32"], n_bytes / HBM_BW)
     ctx["kernels"]["score_topk"] = {
         "name": "score_topk",
         "route": "cuda",
@@ -899,7 +914,7 @@ def _dense_kernels(ctx) -> None:
          library_note="torch.topk(q @ d.T, k): two PyTorch calls, timed as a yardstick, "
          "never used by the port; float32 matmul with allow_tf32 False (the default)",
          bound_ms=bound_ms, bound_by=bound_by, bound_fp32_pipe_ms=bound_fp32_pipe_ms,
-         ops=ops_count, tf32_ops=3 * ops_count, bytes=n_bytes, gb_per_s=n_bytes / ms * 1e-6,
+         ops=ops_count, tf32_ops=tf32_ops, bytes=n_bytes, gb_per_s=n_bytes / ms * 1e-6,
          ms_128_queries=ms_128, ptxas=_ptxas_of("score_topk"), nvidia_smi=ctx["smi"])
     del corpus, q128  # 16 GiB: the experiment phase runs as it ran before this phase grew
     torch.cuda.empty_cache()
@@ -933,13 +948,6 @@ def _control_fails(name, wrong, want) -> float:
     if excess <= 1:
         raise AssertionError(f"{name}: the control passes the row-scaled check ({excess})")
     return excess
-
-
-def _window_pairs(s: int, window: int | None) -> int:
-    """(query, key) pairs a causal layer scores: j <= i and i - j < window."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
 
 
 def _flash_kernels(ctx) -> None:
@@ -1050,7 +1058,6 @@ def _flash_kernels(ctx) -> None:
     b, s, h, kv, hd, cap = 4, 8192, 8, 4, 256, 50.0
     q = _rows(50, (b, s, h, hd), bf16)
     k, v = _rows(51, (b, s, kv, hd), bf16), _rows(52, (b, s, kv, hd), bf16)
-    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     timing = {}
     for label, window in (("global", None), ("local", 4096)):
         kern = lambda c=cap, w=window: flash_attn.flash_attention_cuda(
@@ -1075,9 +1082,7 @@ def _flash_kernels(ctx) -> None:
         torch.testing.assert_close(lib().transpose(1, 2).float(), kern(None, window).float(),
                                    rtol=3e-2, atol=3e-2, msg=f"sdpa {label}")
         library_ms = cuda_ms(lib, reps=10, warmup=2)
-        flops = 4 * b * h * hd * _window_pairs(s, window)
-        bound_ms = 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-        bound_by = "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"
+        bound_ms, bound_by, flops, n_bytes = _bound(flash_attn.cost(q, k, v, window=window))
         timing[label] = {"ms": ms, "ms_cap_none": ms_nocap,
                          "plain_ms": plain_ms,
                          "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1160,11 +1165,8 @@ def _flash_kernels(ctx) -> None:
                                    rtol=3e-2, atol=3e-2, msg=f"sdpa decode {label}")
         library_ms = graph_ms(lib, 50)
         library_ms_eager = cuda_ms(lib, reps=100, warmup=5)
-        n_pos = hi - lo + 1
-        dec_bytes = 2 * (2 * q.numel() + 2 * b * n_pos * kv * hd)
-        flops = 4 * b * h * hd * n_pos
-        bound_ms = 1e3 * max(flops / BF16_OPS_PER_S, dec_bytes / HBM_BYTES_PER_S)
-        bound_by = "operations" if flops / BF16_OPS_PER_S >= dec_bytes / HBM_BYTES_PER_S else "bytes"
+        bound_ms, bound_by, flops, dec_bytes = _bound(
+            flash_decode.cost(q, kc, vc, t, window=window))
         timing[label] = {"ms": ms, "ms_cap_none": ms_nocap, "ms_eager": ms_eager,
                          "plain_ms": plain_ms, "library_ms": library_ms,
                          "library_ms_eager": library_ms_eager, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1456,22 +1458,22 @@ def phase_experiment(ctx) -> None:
          nvidia_smi=ctx["smi"])
 
     # the same run with packed corpus segments (token_pack "auto": 17-bit
-    # planes at vocab 65,536) on the synchronous executor, as measured
-    # before: the run files and the checkpoint bytes are the unpacked run's
+    # planes at vocab 65,536) through the runner's packing branch, pipelined:
+    # the run files and the checkpoint bytes are the unpacked run's
     out_p = os.path.join(OUT, "bm25-grid-packed")
-    packed, pk = _timed(_via_runner(spec, coll, out_p, pipelined=False,
+    packed, pk = _timed(_via_runner(spec, coll, out_p, pipelined=True,
                                     tuning=TuningConfig(token_pack="auto")), n, out_p)
     resolved = packed["job"]["tuning"]["pack_resolved"]
     if resolved != "bitpack":
         raise AssertionError(f"token_pack auto resolved to {resolved!r} at vocab {spec.vocab}")
     _assert_same_runs(out, out_p, "packed")
-    if pk["ckpt_written_bytes"] != sync["ckpt_written_bytes"]:
-        raise AssertionError(f"checkpoint bytes written: unpacked {sync['ckpt_written_bytes']}, "
+    if pk["ckpt_written_bytes"] != pipe["ckpt_written_bytes"]:
+        raise AssertionError(f"checkpoint bytes written: unpacked {pipe['ckpt_written_bytes']}, "
                              f"packed {pk['ckpt_written_bytes']}")
     ctx["launches"]["lexical_scan_topk[packed]"] = pk["launches"]
     emit("experiment.packed", experiment=spec.name, token_pack="auto", pack_resolved=resolved,
          bits=int(spec.vocab).bit_length(), run_files_identical=True, **pk,
-         unpacked_scan_s=sync["scan_s"], unpacked_docs_per_s=sync["docs_per_s"],
+         unpacked_scan_s=pipe["scan_s"], unpacked_docs_per_s=pipe["docs_per_s"],
          nvidia_smi=ctx["smi"])
 
     # the corpus kept on the host, pinned once before the scan, streamed to
@@ -1523,20 +1525,13 @@ def phase_experiment(ctx) -> None:
     emit("experiment.job", experiment=spec.name, corpus="card", run_after="experiment.streamed",
          **resident, state_identical=True, checkpoints_identical=True, nvidia_smi=ctx["smi"])
 
-    # the pipelined runner once more, now that this process has run the
-    # executor three times: is its first run slower only for being first?
-    out_pl2 = os.path.join(OUT, "bm25-grid-pipelined-again")
-    _, again = _timed(_via_runner(spec, coll, out_pl2, pipelined=True), n, out_pl2)
-    _same_scan(out, out_pl2, again, sync, "pipelined again")
-    # and where the device time of a pipelined scan goes (one profiled job,
-    # after the timed runs: profiling slows the host)
+    # where the device time of a pipelined scan goes (one profiled job, after
+    # the timed runs: profiling slows the host)
     out_prof = os.path.join(OUT, "bm25-grid-profiled")
     shutil.rmtree(out_prof, ignore_errors=True)
     profile = _scan_profile(_via_job(spec, device_corpus, queries, coll.stats, out_prof),
                             spec.n_docs // (spec.chunk_size * spec.segment_chunks))
-    emit("experiment.pipelined_again", experiment=spec.name, run_files_identical=True,
-         checkpoints_identical=True, **{k: v for k, v in again.items() if k != "phases"},
-         first_scan_s=pipe["scan_s"], profile=profile, nvidia_smi=ctx["smi"])
+    emit("experiment.profile", experiment=spec.name, profile=profile, nvidia_smi=ctx["smi"])
     del host, queries, device_corpus, job_s, job_d
 
 
@@ -1749,6 +1744,8 @@ def phase_paper(ctx, dev="cuda") -> None:
                              f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
     emit("paper.quickstart", returncode=run.returncode, wall_s=time.monotonic() - t0,
          last_line=run.stdout.strip().splitlines()[-1], nvidia_smi=ctx["smi"])
+
+
 
 
 def phase_tune(ctx, dev="cuda", chunk_values=(8192, 16_384, 24_576, 32_768)) -> None:
@@ -2035,10 +2032,12 @@ def phase_serve(ctx) -> None:
     sweep = sweep_batch_sizes(
         session, lambda n, seed: _rows(40 + seed, (n, cfg.dense_dim), torch.float32).cpu().numpy(),
         sweep_sizes)
+    line = _serve_line(service, "dense", wall_s, sweep)
+    _measured(ctx, "serve-dense-16M block", block_s=line["block_latency_ms"]["p50"] * 1e-3,
+              block_queries=max(line["buckets"]))
     emit("serve.dense", n_docs=session.n_docs, dim=session.dim, dtype="float32",
          resident_bytes=corpus.numel() * 4, scorer="dense_dot", k=k, chunk_size=chunk,
-         launches=launches, sampled_max_abs_err=err,
-         **_serve_line(service, "dense", wall_s, sweep), nvidia_smi=ctx["smi"])
+         launches=launches, sampled_max_abs_err=err, **line, nvidia_smi=ctx["smi"])
     del corpus, session, service, results
     torch.cuda.empty_cache()
     _serve_dense_pad(ctx, k, chunk)
@@ -2564,6 +2563,8 @@ def phase_lm(ctx) -> None:
     if flash_decode.take_error("cuda"):
         raise AssertionError("the decode kernel set its error word (a position outside the cache)")
     peak = torch.cuda.max_memory_allocated()
+    _measured(ctx, "lm-gemma2-2b prefill", step_s=prefill_s)
+    _measured(ctx, "lm-gemma2-2b decode step", step_s=float(np.quantile(step_s, 0.5)))
     ctx["launches"]["flash_attention"] = prefill_launches["flash_attention"]
     ctx["launches"]["flash_decode"] = decode_launches["flash_decode"]
     steps = np.array(step_s)
@@ -2634,15 +2635,13 @@ def _moe_flash_geometry(ctx, dev="cuda") -> None:
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     torch.testing.assert_close(lib().transpose(1, 2).float(), kern().float(), rtol=3e-2,
                                atol=3e-2, msg="sdpa qwen3-moe")
-    flops = 4 * b * h * hd * _window_pairs(s, None)
-    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    bound_ms, bound_by, flops, n_bytes = _bound(flash_attn.cost(q, k, v))
     attn = {"ms": cuda_ms(kern, reps=20, warmup=2),
             "plain_ms": cuda_ms(lambda: flash_attn.flash_attention_ref(q, k, v, window=None,
                                                                         cap=None), reps=2),
             "library_ms": cuda_ms(lib, reps=20, warmup=2),
-            "bound_ms": 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S),
-            "bound_by": "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S
-            else "bytes", **close, "route": flash_attn.route(bf16, hd),
+            "bound_ms": bound_ms, "bound_by": bound_by, **close,
+            "route": flash_attn.route(bf16, hd),
             "shape": f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, causal, no cap, no window"}
     del q, k, v, qt, kt, vt
     t = MOE_PROMPT + MOE_DECODE - 1
@@ -2657,15 +2656,12 @@ def _moe_flash_geometry(ctx, dev="cuda") -> None:
     lib = lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt, enable_gqa=True)
     torch.testing.assert_close(lib()[:, :, 0].float(), kern().float(), rtol=3e-2, atol=3e-2,
                                msg="sdpa decode qwen3-moe")
-    dec_bytes = 2 * (2 * q.numel() + 2 * b * (t + 1) * kv * hd)
-    flops = 4 * b * h * hd * (t + 1)
+    dec_bound_ms, dec_bound_by, _, _ = _bound(flash_decode.cost(q, kc, vc, t))
     dec = {"ms": graph_ms(kern, 50),
            "plain_ms": cuda_ms(lambda: flash_decode.flash_decode_ref(q, kc, vc, t, window=None,
                                                                       cap=None), reps=10),
            "library_ms": graph_ms(lib, 50),
-           "bound_ms": 1e3 * max(flops / BF16_OPS_PER_S, dec_bytes / HBM_BYTES_PER_S),
-           "bound_by": "operations" if flops / BF16_OPS_PER_S >= dec_bytes / HBM_BYTES_PER_S
-           else "bytes", **close,
+           "bound_ms": dec_bound_ms, "bound_by": dec_bound_by, **close,
            "shape": f"B {b}, {MOE_SLOTS} slots, t {t} (a device int32), H {h}, KV {kv}, "
            f"hd {hd}, bf16, no cap, no window"}
     del q, kc, vc, kt, vt
@@ -2958,6 +2954,8 @@ def phase_lm_moe(ctx, dev="cuda", cfg=None) -> None:
                           torch.tensor(p + n_decode + 1, dtype=torch.int32, device=dev))
     attn_s = profile["prefill"]["flash_s"]["flash_attention"]
     decode_step_s = profile["decode_8_steps"]["flash_s"]["flash_decode"] / 8
+    if not plan["depth_cut"]:
+        _measured(ctx, "lm-qwen3-moe decode step", step_s=float(np.quantile(steps, 0.5)))
     emit("lm_moe", arch=cfg.name, layers=cfg.n_layers, depth_cut=plan["depth_cut"],
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
          experts=cfg.n_experts, top_k=cfg.top_k, d_ff=cfg.d_ff, vocab=cfg.vocab,
@@ -2976,8 +2974,8 @@ def phase_lm_moe(ctx, dev="cuda", cfg=None) -> None:
          decode_ms_p99=float(np.quantile(steps, 0.99)) * 1e3,
          decode_tokens_per_s=b * n_decode / float(steps.sum()),
          expert_bytes_per_step=expert_bytes,
-         expert_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3,
-         step_bytes=step_bytes, step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         expert_bound_ms=expert_bytes / HBM_BW * 1e3,
+         step_bytes=step_bytes, step_bound_ms=step_bytes / HBM_BW * 1e3,
          expert_products_ms_per_step=products_ms,
          flash_decode_device_ms_per_step=decode_step_s * 1e3,
          flash_decode_share=decode_step_s / float(steps.mean()),
@@ -2994,10 +2992,10 @@ def phase_lm_moe(ctx, dev="cuda", cfg=None) -> None:
 
 TRAIN_ARCH = "h2o-danube-1.8b"
 # train.grads: full width, 2 layers, 1 x 512 tokens; train.full: full depth,
-# 2 x 8,192 (the window of 4,096 bites past 4,096), 6 steps; train.resume:
+# 2 x 8,192 (the window of 4,096 bites past 4,096), 4 steps; train.resume:
 # 2 layers, 8 steps, a failure before step 5, a checkpoint every 4 steps
 GRAD_BATCH, GRAD_SEQ = 1, 512
-FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_LR = 2, 8192, 6, 1e-3
+FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_LR = 2, 8192, 4, 1e-3
 RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 2, 1024, 8, 5, 4
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 256
 RECSYS_ARCHS = ("fm", "dcn-v2", "mind", "sasrec")
@@ -3174,18 +3172,15 @@ def _train_flash_geometry(ctx, cfg, dev="cuda") -> None:
     do = _rows(73, (b, s, h, hd), bf16)
     bwd = lambda: flash_attn.flash_attention_bwd(q, k, v, do, window=w, cap=None,
                                                  block=cfg.q_block)
-    pairs = _window_pairs(s, w)
-    flops = 4 * b * h * hd * pairs
-    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    bound_ms, bound_by, flops, _ = _bound(flash_attn.cost(q, k, v, window=w))
     line = {"ms": cuda_ms(kern, reps=10, warmup=2),
             "plain_ms": cuda_ms(lambda: flash_attn.flash_attention_ref(q, k, v, window=w,
                                                                        cap=None), reps=1),
             "library_ms": cuda_ms(lib, reps=5, warmup=1),
-            "bound_ms": 1e3 * max(flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S),
-            "bound_by": "operations" if flops / BF16_OPS_PER_S >= n_bytes / HBM_BYTES_PER_S
-            else "bytes", **close, "route": flash_attn.route(bf16, hd),
+            "bound_ms": bound_ms, "bound_by": bound_by, **close,
+            "route": flash_attn.route(bf16, hd),
             "backward_ms": cuda_ms(bwd, reps=2, warmup=1),
-            "backward_bound_ms": 1e3 * 2.5 * flops / BF16_OPS_PER_S,
+            "backward_bound_ms": 1e3 * 2.5 * flops / PEAKS["bf16"],
             "shape": f"B {b}, S {s}, H {h}, KV {kv}, hd {hd}, bf16, causal, window {w}, "
                      "no cap"}
     del q, k, v, qt, kt, vt, do, mask
@@ -3205,8 +3200,10 @@ def _model_flops(cfg, b: int, s: int) -> dict:
     """A step's model operations: 6 N tokens over the matmul parameters (all
     but the embedding table), plus attention's 12 B H hd pairs a layer
     (forward 4, backward 8); remat adds one more forward of both."""
+    from repro_torch.kernels import flash_attn
+
     n_matmul = cfg.param_count() - cfg.vocab * cfg.d_model
-    pairs = _window_pairs(s, cfg.sliding_window)
+    pairs = flash_attn.window_pairs(s, cfg.sliding_window)
     attn = 4 * b * cfg.n_heads * cfg.hd * pairs * cfg.n_layers
     tokens = b * s
     return {"matmul_params": n_matmul, "tokens": tokens, "attention_pairs": pairs,
@@ -3273,7 +3270,7 @@ def _profiled_step(cfg, out, dev) -> dict:
 
 def _train_full(ctx, cfg, dev="cuda") -> None:
     """h2o-danube-1.8b at full width and depth, bfloat16 parameters, float32
-    moments, remat "nothing": 6 steps of 2 x 8,192 tokens through
+    moments, remat "nothing": 4 steps of 2 x 8,192 tokens through
     `launch.train.train` (the first is warm-up), then one profiled step."""
     import numpy as np
     import torch
@@ -3306,6 +3303,7 @@ def _train_full(ctx, cfg, dev="cuda") -> None:
     profile = _profiled_step(cfg, out, dev)
     del out
     torch.cuda.empty_cache()
+    _measured(ctx, "train-danube-1.8b step", step_s=p50, max_memory_allocated=peak)
     emit("train.full", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
          vocab=cfg.vocab, window=cfg.sliding_window, dtype=cfg.dtype,
@@ -3315,8 +3313,8 @@ def _train_full(ctx, cfg, dev="cuda") -> None:
          step_s_p50=p50, step_s_max=float(steps.max()), run_s=run_s,
          tokens_per_s=FULL_BATCH * FULL_SEQ / p50, **flops,
          model_flops_per_s=flops["model_flops"] / p50,
-         mfu_bf16=flops["model_flops"] / p50 / BF16_OPS_PER_S,
-         with_remat_share=flops["with_remat_flops"] / p50 / BF16_OPS_PER_S,
+         mfu_bf16=flops["model_flops"] / p50 / PEAKS["bf16"],
+         with_remat_share=flops["with_remat_flops"] / p50 / PEAKS["bf16"],
          flash_attention_launches=launches["flash_attention"],
          flash_attention_launches_per_step=launches["flash_attention"] // FULL_STEPS,
          state_bytes=state_bytes, max_memory_allocated=peak, profile=profile,
@@ -4043,6 +4041,10 @@ def _gnn_products(ctx, dev="cuda", dims=None, reps=GNN_FWD_REPS) -> None:
     same_class = float((outs[4].argmax(-1) == outs[1].argmax(-1)).float().mean())
     del outs, x, params
     torch.cuda.empty_cache()
+    if dims is None:
+        _measured(ctx, "gnn-products-fwd", step_s=lines["mesh_1"]["forward_s_p50"],
+                  max_memory_allocated=lines["mesh_1"]["max_memory_allocated"],
+                  edges=lines["mesh_1"]["bucket_size"])
     emit("gnn.products", config="pna", layers=cfg.n_layers, d_hidden=cfg.d_hidden,
          nodes=n, edges=e, d_feat=d["d_feat"], classes=d["n_classes"],
          edge_block=gnn.EDGE_BLOCK, make_graph_s=make_s, memory_plan=plan,
@@ -4172,6 +4174,201 @@ def phase_gnn(ctx, dev="cuda") -> None:
     emit("gnn", launches=launches, seconds=time.monotonic() - t0, nvidia_smi=ctx["smi"])
 
 
+# ---------------------------------------------------------------------------
+# phase lower: the lowering tools (`launch.cells`, `dryrun`, `opcount`,
+# `roofline`) on meta tensors — host work, no kernel may launch
+# ---------------------------------------------------------------------------
+
+LOWER_MESHES = ("1", "16x16")
+# the dry-run's processes: the host's cores, at most 8 (one H100's machine)
+LOWER_WORKERS = min(8, os.cpu_count() or 1)
+# the reckoned peak against max_memory_allocated: within this share, or the
+# gap is named
+LOWER_PEAK_TOL = 0.25
+
+
+def _measured(ctx, cell: str, **values) -> None:
+    """A phase's measured figures for one of the chip script's cells, which
+    phase ``lower`` sets beside its roofline bound."""
+    ctx.setdefault("measured", {})[cell] = values
+
+
+def _lower_reason(error: str) -> str:
+    """A failure's reason without its mesh shapes and counts."""
+    import re
+
+    return re.sub(r"\s+", " ", re.sub(r"\{[^}]*\}|\(\d[^)]*\)|\('[^)]*\)", "…", error))
+
+
+def _lower_cells(ctx) -> dict:
+    """The chip script's own cells at the shapes its phases run, each
+    ``(step, args, note)`` on meta tensors, built by the entry points those
+    phases call."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.core import scoring
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    mesh = cells.meta_mesh("1")
+    rules = rules_for_mesh(mesh)
+    out = {}
+    # train.full: launch.train's step, 2 x 8,192 tokens, float32 moments
+    cfg = get_config(TRAIN_ARCH)
+    loss_fn, _, _ = train_cli.build_lm(cfg, mesh, rules, batch=FULL_BATCH, seq=FULL_SEQ, seed=0)
+    step = train_cli.make_train_step(
+        loss_fn, adamw.cosine_schedule(FULL_LR, warmup=1, total=FULL_STEPS))
+    shapes = tfm.param_shapes(cfg)
+    batch = {"tokens": meta((FULL_BATCH, FULL_SEQ), i32), "labels": meta((FULL_BATCH, FULL_SEQ), i32)}
+    out["train-danube-1.8b step"] = (step, (
+        cells.abstract(shapes),
+        cells.abstract(adamw.adamw_state_shapes(shapes, getattr(torch, cfg.opt_dtype))),
+        meta(()), batch), f"{FULL_BATCH} x {FULL_SEQ} tokens, 24 layers, remat")
+    # lm: gemma2-2b prefill of 4 x 8,192, a decode step over 8,704 slots
+    cfg = get_config("gemma2-2b")
+    params = cells.abstract(tfm.param_shapes(cfg))
+    out["lm-gemma2-2b prefill"] = (tfm.make_prefill_step(cfg), (
+        params, meta((LM_BATCH, LM_PROMPT), i32)), f"{LM_BATCH} x {LM_PROMPT} tokens")
+    out["lm-gemma2-2b decode step"] = (tfm.make_serve_step(cfg, batch=LM_BATCH), (
+        params, cells.abstract(tfm.cache_shapes(cfg, LM_BATCH, LM_SLOTS)), meta((LM_BATCH,), i32),
+        LM_PROMPT + LM_DECODE // 2), f"{LM_SLOTS} slots, counted at t = "
+        f"{LM_PROMPT + LM_DECODE // 2}, the middle of the run's {LM_PROMPT}.."
+        f"{LM_PROMPT + LM_DECODE - 1}")
+    # lm_moe: qwen3-moe's decode step, 4 tokens, 2,176 slots, a 1x1 mesh
+    cfg = get_config(MOE_ARCH)
+    moe_ctx = tfm.make_context(cfg, mesh, rules, tokens_per_shard=MOE_BATCH)
+    out["lm-qwen3-moe decode step"] = (tfm.make_serve_step(moe_ctx, batch=MOE_BATCH), (
+        cells.abstract(tfm.param_shapes(cfg)),
+        cells.abstract(tfm.cache_shapes(cfg, MOE_BATCH, MOE_SLOTS)), meta((MOE_BATCH,), i32),
+        MOE_PROMPT + MOE_DECODE // 2), f"{MOE_SLOTS} slots, counted at t = "
+        f"{MOE_PROMPT + MOE_DECODE // 2}, the middle of the run's {MOE_PROMPT}.."
+        f"{MOE_PROMPT + MOE_DECODE - 1}")
+    # gnn.products: pna's forward on a (1,) mesh, the run's bucketed edges
+    dims = shapes_for("pna")["ogb_products"].dims
+    cfg = dataclasses.replace(get_config("pna"), n_classes=dims["n_classes"])
+    mesh1 = cells.Mesh([torch.device("meta")], ("data",))
+    fwd = gnn.make_sharded_full_graph(mesh1, rules_for_mesh(mesh1), cfg)
+    edges = ctx.get("measured", {}).get("gnn-products-fwd", {}).get("edges", dims["n_edges"])
+
+    def forward(p, x, src, dst):
+        with torch.no_grad():
+            return fwd(p, x, src, dst)
+
+    out["gnn-products-fwd"] = (forward, (
+        cells.abstract(gnn.param_shapes(cfg, dims["d_feat"])),
+        meta((dims["n_nodes"], dims["d_feat"])), meta((edges,), i32), meta((edges,), i32)),
+        f"{dims['n_nodes']} nodes, {edges} edges, torch.no_grad; meta sorts every slab and "
+        "keeps every edge")
+    # serve.dense: one 64-query block of DenseSession's dense_dot scan
+    k, chunk = get_config("mirex").k, get_config("mirex").chunk_size
+    out["serve-dense-16M block"] = (
+        lambda q, d: ops.score_topk(q, d, k=k, block_d=chunk),
+        (meta((64, 256)), meta((DENSE_DOCS, 256))), "64 queries x 2^24 x 256 float32, k 1000")
+    # experiment: one mirex-8M segment's scan kernel (bm25-grid, 5 models)
+    spec = _mirex_spec()
+    rows = spec.chunk_size * spec.segment_chunks
+    vocab = spec.vocab
+    stats = scoring.CollectionStats(meta((vocab,), i32), meta((vocab,), i32), meta((), i32),
+                                    meta((), i32), meta(()))
+
+    def segment(q, d, dl):
+        modes, w, ab = scoring.lexical_epilogues(_bm25_grid(), q, stats)
+        return ops.lexical_scan_topk(q, w, ab, d, dl, modes=modes, k=spec.k, block_d=16_384,
+                                     tile_d=16)
+
+    out["mirex-8M segment"] = (segment, (
+        meta((spec.n_queries, get_config("mirex").max_q_len), i32),
+        meta((rows, spec.max_doc_len), i32), meta((rows,), i32)),
+        f"{rows} docs x {spec.max_doc_len}, {spec.n_queries} queries, 5 models, k {spec.k}")
+    return out
+
+
+def _lower_bounds(ctx) -> dict:
+    """Each of the chip script's cells counted on meta: its roofline bound
+    beside what this call measured (``not measured`` when its phase did
+    not run)."""
+    from repro_torch.launch import opcount, roofline
+
+    measured = ctx.get("measured", {})
+    kernel_ms = {"serve-dense-16M block": ("score_topk", "ms"),
+                 "mirex-8M segment": ("lexical_scan_topk", "ms")}
+    lines = {}
+    for name, (fn, args, note) in _lower_cells(ctx).items():
+        t0 = time.monotonic()
+        with opcount.OpCounter(1) as counter:
+            counter.track(args)
+            fn(*args)
+        hlo = counter.result()
+        b = roofline.bound(hlo)
+        got = measured.get(name, {})
+        line = {**b, "counted_flops": hlo["flops"], "flops_by_class": hlo["flops_by_class"],
+                "counted_bytes": hlo["bytes_accessed"], "reckoned_peak_bytes": hlo["peak_bytes"],
+                "kernels": hlo["kernels"], "count_s": time.monotonic() - t0, "note": note,
+                "measured_s": got.get("step_s", got.get("block_s", "not measured"))}
+        if name in kernel_ms:
+            entry = ctx["kernels"].get(kernel_ms[name][0], {})
+            line["kernel_measured_s"] = (entry["ms"] * 1e-3 if "ms" in entry
+                                         else "not measured")
+        if isinstance(line["measured_s"], float):
+            line["measured_over_bound"] = line["measured_s"] / b["bound_s"]
+        if "max_memory_allocated" in got:
+            peak = got["max_memory_allocated"]
+            line["max_memory_allocated"] = peak
+            line["reckoned_over_measured_peak"] = hlo["peak_bytes"] / peak
+            if abs(hlo["peak_bytes"] / peak - 1) > LOWER_PEAK_TOL:
+                raise AssertionError(f"{name}: reckoned peak {hlo['peak_bytes']} B, measured "
+                                     f"{peak} B, more than {LOWER_PEAK_TOL:.0%} apart")
+        lines[name] = line
+    return lines
+
+
+def phase_lower(ctx, workers: int = LOWER_WORKERS) -> None:
+    """The dry-run over every cell on the one-H100 mesh and the 16x16 mesh
+    (``workers`` processes, all on meta), then the chip script's own cells
+    counted at their shapes, each bound beside this call's measurement. No
+    kernel may launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    t0 = time.monotonic()
+    before = dict(ops.LAUNCHES)
+    summary = {}
+    recs = dryrun.sweep(LOWER_MESHES, force=True, quiet=True, workers=workers)
+    for r in recs:
+        m = summary.setdefault(r["mesh"], {"cells": 0, "ok": 0, "failures": {}})
+        m["cells"] += 1
+        if r["ok"]:
+            m["ok"] += 1
+            if any(r["launches"].values()):
+                raise AssertionError(f"{r['arch']} x {r['shape']} launched {r['launches']}")
+            continue
+        if "ROADMAP queue 1 item 3" not in r["error"]:
+            raise AssertionError(f"{r['mesh']} {r['arch']} x {r['shape']}: {r['error']}")
+        reason = _lower_reason(r["error"])
+        m["failures"][reason] = m["failures"].get(reason, 0) + 1
+    if summary.get("1", {}).get("ok") != summary.get("1", {}).get("cells"):
+        raise AssertionError(f"the one-H100 mesh's dry-run failed cells: {summary['1']}")
+    sweep_s = time.monotonic() - t0
+    bounds = _lower_bounds(ctx)
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"phase lower launched kernels: {before} -> {dict(ops.LAUNCHES)}")
+    emit("lower", meshes=summary, sweep_s=sweep_s, workers=workers, bounds=bounds,
+         launches={k: ops.LAUNCHES[k] - before[k] for k in before},
+         seconds=time.monotonic() - t0, nvidia_smi=ctx["smi"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -4187,7 +4384,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(1, os.path.join(ROOT, "tests"))  # the CPU tests' parity rule
     import repro_torch  # noqa: F401 — fails here when the repository is absent
 
@@ -4198,7 +4394,8 @@ def main(argv=None) -> int:
     table = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
              "experiment": phase_experiment, "paper": phase_paper, "tune": phase_tune,
              "resume": phase_resume, "serve": phase_serve, "mesh": phase_mesh, "lm": phase_lm,
-             "lm_moe": phase_lm_moe, "train": phase_train, "gnn": phase_gnn}
+             "lm_moe": phase_lm_moe, "train": phase_train, "gnn": phase_gnn,
+             "lower": phase_lower}
     for p in PHASES:
         if p in only:
             t0 = time.monotonic()

@@ -60,7 +60,7 @@ PACK_MODES = ("none", "auto", "8", "16", "bitpack")
 _RESOLVED = ("u8", "u16", "bitpack")
 
 _GROUP = 32  # positions per bit-plane group (one int32 word per plane)
-_PACK_ROWS = 1 << 14  # rows packed at a time: bounded host temporaries
+_PACK_ROWS = 1 << 12  # rows packed at a time: temporaries near the cache's size
 _PACK_THREADS = 8  # numpy releases the GIL in its loops: blocks pack in parallel
 
 _TORCH_DTYPES = {"u8": torch.uint8, "u16": torch.uint16, "bitpack": torch.int32}
@@ -160,27 +160,45 @@ def make_spec(vocab: int, length: int, mode: str) -> PackSpec | None:
     return PackSpec(mode=resolved, vocab=int(vocab), length=int(length), bits=bits)
 
 
+# the three masked swaps of an 8 x 8 bit-matrix transpose of a uint64
+# (Hacker's Delight, 7-3): bit c of byte r moves to bit r of byte c
+_TRANSPOSE8 = ((7, 0x00AA00AA00AA00AA), (14, 0x0000CCCC0000CCCC), (28, 0x00000000F0F0F0F0))
+
+
+def _transpose8(x: np.ndarray) -> np.ndarray:
+    for shift, mask in _TRANSPOSE8:
+        s, m = np.uint64(shift), np.uint64(mask)
+        t = (x ^ (x >> s)) & m
+        x = x ^ t ^ (t << s)
+    return x
+
+
 def _pack_rows(t: np.ndarray, spec: PackSpec) -> np.ndarray:
     """Pack one block of rows (validated, any integer dtype)."""
-    mapped = np.where(t == PAD_TOKEN, spec.vocab, t).astype(np.uint32)
+    mapped = np.where(t == PAD_TOKEN, spec.vocab, t).astype("<u4")
     if spec.mode == "u8":
         return mapped.astype(np.uint8)
     if spec.mode == "u16":
         return mapped.astype(np.uint16)
     n, l = mapped.shape
     groups = -(-l // _GROUP)
-    padded = np.zeros((n, groups * _GROUP), np.uint32)
-    padded[:, :l] = mapped
-    padded = padded.reshape(n, groups, _GROUP)
+    padded = mapped
+    if groups * _GROUP != l:
+        padded = np.zeros((n, groups * _GROUP), "<u4")
+        padded[:, :l] = mapped
     # bit-plane transpose: word p of group g collects bit p of its 32 tokens,
-    # bit t from position 32 g + t (packbits' little bit order, read as a
-    # little-endian uint32)
-    words = np.empty((n, groups, spec.bits), np.uint32)
-    for p in range(spec.bits):
-        plane = ((padded >> np.uint32(p)) & np.uint32(1)).astype(np.uint8)
-        packed = np.packbits(plane, axis=-1, bitorder="little")  # [n, g, 4]
-        words[:, :, p] = np.ascontiguousarray(packed).view("<u4")[..., 0]
-    return words.reshape(n, groups * spec.bits).view(np.int32)
+    # bit t from position 32 g + t (little bit order). Bit p of a token is
+    # bit p % 8 of its byte k = p // 8: byte k of 8 tokens in a row makes a
+    # uint64 whose bit transpose holds in its byte c the 8 bits of plane
+    # 8 k + c, and 4 such bytes are a plane's word
+    by = padded.view(np.uint8).reshape(n, groups, _GROUP, 4)
+    words = np.empty((n, groups, spec.bits, 4), np.uint8)  # [.., plane, byte of the word]
+    for k in range(-(-spec.bits // 8)):
+        octets = np.ascontiguousarray(by[..., k]).view("<u8")  # [n, g, 4]: 8 tokens each
+        planes = _transpose8(octets).view(np.uint8).reshape(n, groups, 4, 8)
+        hi = min(8, spec.bits - 8 * k)
+        words[:, :, 8 * k : 8 * k + hi] = planes[..., :hi].transpose(0, 1, 3, 2)
+    return words.view("<u4").reshape(n, groups * spec.bits).view(np.int32)
 
 
 def pack_tokens(tokens: Any, spec: PackSpec) -> np.ndarray:
@@ -199,9 +217,11 @@ def pack_tokens(tokens: Any, spec: PackSpec) -> np.ndarray:
     out = np.empty((n, spec.packed_width), spec.packed_dtype())
 
     def pack_block(a: int) -> None:
-        blk = t[a : a + _PACK_ROWS].astype(np.int64, copy=False)
-        bad = (blk != PAD_TOKEN) & ((blk < 0) | (blk >= spec.vocab))
-        if bad.any():
+        blk = t[a : a + _PACK_ROWS]
+        # PAD_TOKEN is -1, the one value below 0 a row may hold: a block is
+        # in range when its least value is at least -1 and its largest
+        # below vocab (two reductions, no temporaries)
+        if blk.size and (blk.min() < PAD_TOKEN or blk.max() >= spec.vocab):
             raise ValueError(
                 f"tokens outside [0, {spec.vocab}) ∪ {{PAD_TOKEN}} cannot be packed"
             )

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pipeline
+from repro_torch.obs import counting
 
 NEG_INF = float("-inf")
 
@@ -139,6 +140,29 @@ def state_array(states: Sequence[TopKState], shape: tuple[int, ...] | None = Non
     return arr.reshape(shape if shape is not None else (len(states),))
 
 
+def _state_bytes(state: TopKState) -> int:
+    return counting.tensor_bytes(state.scores) + counting.tensor_bytes(state.ids)
+
+
+def _record_stages(states: np.ndarray, names, axes, kind: str) -> None:
+    """Tell an op counter in force of a merge's collectives, one stage an
+    axis: each fiber's all-gather of its states (``"all-gather"``, the
+    gathered bytes a member) or each round of the butterfly
+    (``"collective-permute"``, one state a member)."""
+    if counting.active() is None:
+        return
+    one = _state_bytes(states.flat[0])
+    for a in (names,) if isinstance(names, str) else names:
+        n = states.shape[list(axes).index(a)]
+        fibers = states.size // n
+        for _ in range(fibers):
+            if kind == "all-gather":
+                counting.collective(kind, n * one, n)
+            else:
+                for _ in range(max(n - 1, 0).bit_length()):
+                    counting.collective(kind, one, n)
+
+
 def _to(state: TopKState, device) -> TopKState:
     """The state on ``device`` (no copy when it is there already)."""
     return TopKState(scores=state.scores.to(device), ids=state.ids.to(device))
@@ -156,6 +180,7 @@ def merge_across_lex(states: np.ndarray, axis_name: str | Sequence[str], *,
     share one merge contract. Every shard of a reduced fiber holds the same
     state.
     """
+    _record_stages(states, axis_name, axes, "all-gather")
     for a in (axis_name,) if isinstance(axis_name, str) else axis_name:
         states = pipeline.merge_across(states, a, merge_lex, axes=axes)
     return states
@@ -176,6 +201,8 @@ def merge_across(states: np.ndarray, axis_name: str | Sequence[str], *,
     """
     if method not in ("staged", "tree"):
         raise ValueError(f"unknown merge method {method!r}")
+    if method == "staged":
+        _record_stages(states, axis_name, axes, "all-gather")
     for a in (axis_name,) if isinstance(axis_name, str) else axis_name:
         if method == "tree":
             states = merge_across_tree(states, a, axes=axes)
@@ -198,6 +225,7 @@ def merge_across_tree(states: np.ndarray, axis_name: str, *,
     n = states.shape[dim]
     if n & (n - 1):
         raise ValueError(f"tree merge requires power-of-two axis size, got {n}")
+    _record_stages(states, axis_name, axes, "collective-permute")
     out = np.empty(states.shape, dtype=object)
     src, dst = np.moveaxis(states, dim, -1), np.moveaxis(out, dim, -1)
     for idx in np.ndindex(src.shape[:-1]):

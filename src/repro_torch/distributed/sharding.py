@@ -32,6 +32,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs import counting
+
 
 class Mesh:
     """Named axes over an n-d array of devices.
@@ -118,6 +120,14 @@ def logical_to_spec(rules: AxisRules, name: str | None):
     raise ValueError(f"unknown logical axis {name!r}")
 
 
+def replicated_specs(shapes):
+    """A replicated spec (``None`` for every dim) for each leaf of a tree
+    (dicts) of shapes (any leaf with a ``shape``)."""
+    if isinstance(shapes, dict):
+        return {k: replicated_specs(v) for k, v in shapes.items()}
+    return (None,) * len(shapes.shape)
+
+
 RULES_SINGLE_POD = AxisRules(dp=("data",), tp="model")
 RULES_MULTI_POD = AxisRules(dp=("pod", "data"), tp="model")
 
@@ -132,13 +142,27 @@ def rules_for_mesh(mesh: Mesh) -> AxisRules:
     return AxisRules(dp=tuple(names[:-1]) or (names[0],), tp=names[-1])
 
 
+def _record(out: torch.Tensor, kind: str, payload: int, group: int, grad_kind: str,
+            grad_payload: int) -> None:
+    """Tell an op counter in force (`repro_torch.obs.counting`) of a
+    collective, and of its transpose when the backward reaches it."""
+    if counting.active() is None or group < 2:
+        return
+    counting.collective(kind, payload, group)
+    if out.requires_grad:
+        out.register_hook(lambda g: counting.collective(grad_kind, grad_payload, group))
+
+
 def all_gather_parts(parts: list, dim: int = 0) -> torch.Tensor:
     """An all-gather: the shards' parts joined in shard order on the first
     one's device; one part is returned as it is (no copy)."""
     if len(parts) == 1:
         return parts[0]
     dev = parts[0].device
-    return torch.cat([p.to(dev) for p in parts], dim=dim)
+    out = torch.cat([p.to(dev) for p in parts], dim=dim)
+    _record(out, "all-gather", counting.tensor_bytes(out), len(parts), "reduce-scatter",
+            counting.tensor_bytes(parts[0]))
+    return out
 
 
 def psum_parts(parts: list) -> torch.Tensor:
@@ -148,6 +172,8 @@ def psum_parts(parts: list) -> torch.Tensor:
     out = parts[0]
     for p in parts[1:]:
         out = out + p.to(dev)
+    _record(out, "all-reduce", counting.tensor_bytes(out), len(parts), "all-reduce",
+            counting.tensor_bytes(out))
     return out
 
 

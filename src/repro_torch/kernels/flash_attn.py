@@ -88,9 +88,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int | None = No
 
 def _mm_f32(a, b) -> torch.Tensor:
     """Batched ``a @ b`` with a float32 result: bfloat16 operands on the
-    card's tensor cores (float32 accumulation), float32 operands as they
-    are, and on the CPU in float32 (bfloat16 products are exact there)."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
+    card's tensor cores (float32 accumulation; so on ``meta``, where an op
+    counter reckons the card's work), float32 operands as they are, and on
+    the CPU in float32 (bfloat16 products are exact there)."""
+    if (a.is_cuda or a.is_meta) and a.dtype == torch.bfloat16:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -157,6 +158,30 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int | None 
         dk[:, lo:hi] += _mm_f32(ds.transpose(1, 2), qb)
     back = lambda x: x.view(b, kv, s, hd).permute(0, 2, 1, 3).to(dt).contiguous()
     return dq, back(dk), back(dv)
+
+
+def window_pairs(s: int, window: int | None, causal: bool = True) -> int:
+    """(query, key) pairs a layer of ``s`` positions scores: ``j <= i``
+    (causal) and ``i - j < window``."""
+    if causal:
+        if window is None or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if window is None or window >= s:
+        return s * s
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+def cost(q, k, v, *, causal: bool = True, window: int | None = None) -> dict:
+    """The least work of one forward call (PERF.md's Bound column): Q, K, V
+    read and the output written once; ``4 hd`` operations a scored (query
+    head, key) pair, products in the inputs' dtype (bfloat16 on the tensor
+    cores, float32 on the CUDA cores)."""
+    b, s, h, hd = q.shape
+    flops = 4 * b * h * hd * window_pairs(s, window, causal)
+    cls = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    return {"flops": {cls: flops},
+            "bytes": q.element_size() * (2 * q.numel() + k.numel() + v.numel())}
 
 
 def route(dtype, hd: int) -> str:

@@ -66,6 +66,21 @@ def flash_decode_ref(q, k_cache, v_cache, t: int, *, window: int | None = None,
     return o.reshape(b, h, hd).to(q.dtype)
 
 
+def cost(q, k_cache, v_cache, t: int | None, *, window: int | None = None) -> dict:
+    """The least work of one call (PERF.md's Bound column): the query read
+    and the output written once, K and V of the attended positions read
+    once; ``4 hd`` operations a (query head, position) pair. ``t`` on the
+    device cannot be read without a sync (and not at all on ``meta``): then
+    the call is counted at the cache's last position, ``t = S - 1``."""
+    b, h, hd = q.shape
+    kv = k_cache.shape[2]
+    lo, hi = allowed_range(k_cache.shape[1] - 1 if t is None else int(t), window)
+    n_pos = hi - lo + 1
+    cls = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    return {"flops": {cls: 4 * b * h * hd * n_pos},
+            "bytes": q.element_size() * (2 * q.numel() + 2 * b * n_pos * kv * hd)}
+
+
 def split_plan(s: int, window: int | None, pairs: int, n_sm: int, max_block: int
                ) -> tuple[int, int]:
     """``(block_s, n_splits)`` of a launch over a cache of ``s`` positions

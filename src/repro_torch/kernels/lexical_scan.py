@@ -155,6 +155,26 @@ def lexical_scan_topk_ref(
     return state_s.contiguous(), state_i.contiguous()
 
 
+def cost(q_tokens, weights, ab, d_tokens, d_len, *, k: int,
+         pack_spec: PackSpec | None = None) -> dict:
+    """The least work of one call (PERF.md's Bound column): every input read
+    once and both outputs written once; one lookup a token and one epilogue
+    and compare a (model, query, doc), integer operations (``other``)."""
+    n_models, n_q = weights.shape[0], q_tokens.shape[0]
+    n_d = d_tokens.shape[0]
+    l_d = d_tokens.shape[1] if pack_spec is None else pack_spec.length
+    n_bytes = sum(t.numel() * t.element_size() for t in (q_tokens, weights, ab, d_tokens, d_len))
+    return {"flops": {"other": n_d * l_d + n_models * n_q * n_d},
+            "bytes": n_bytes + 2 * n_models * n_q * k * 4}
+
+
+def outputs_meta(q_tokens, weights, *, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The call's ``(scores, ids)`` on the ``meta`` device: shapes, no data."""
+    shape = (weights.shape[0], q_tokens.shape[0], k)
+    return (torch.empty(shape, dtype=torch.float32, device="meta"),
+            torch.empty(shape, dtype=torch.int32, device="meta"))
+
+
 WARPS = 16  # the kernel's CTA: 512 threads
 MAP_BYTES = 65536 // 8  # the query terms' bitmap
 

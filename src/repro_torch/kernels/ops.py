@@ -1,9 +1,16 @@
 """Public wrappers for the port's kernels: the device picks the path.
 
 A wrapper given CPU tensors runs its kernel's plain PyTorch version; given
-CUDA tensors it launches the hand-written CUDA kernel or raises. There is no
+CUDA tensors it launches the hand-written CUDA kernel or raises; given
+``meta`` tensors (shapes and dtypes, no data) it launches nothing and
+returns outputs of the right shapes and dtypes on ``meta``. There is no
 fallback, no backend switch and no environment variable: a CUDA tensor never
 reaches a plain version, and a failed build or launch is an error.
+
+Each body runs through `repro_torch.obs.counting.kernel`: under an op
+counter (the lowering tools) the kernel's work, its module's ``cost(...)``,
+is charged to the counter and the body itself is not counted, on every
+device; with no counter the body just runs.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card (plain integers; runs on the CPU never count), so that a run can show
@@ -25,6 +32,7 @@ from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import lexical_scan as _lexical
 from repro_torch.kernels import score_topk as _dense
+from repro_torch.obs import counting
 from repro_torch.tune import config as tune_config
 
 LAUNCHES: dict[str, int] = {
@@ -46,6 +54,13 @@ def count_launch(name: str) -> None:
     """Add one to ``LAUNCHES[name]`` (a read-modify-write, hence the lock)."""
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+
+
+def _launch(name: str, fn, *args, **kwargs):
+    """Launch a CUDA kernel and count it."""
+    out = fn(*args, **kwargs)
+    count_launch(name)
+    return out
 
 
 def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
@@ -87,13 +102,17 @@ def score_topk(q, d, *, k: int, block_d: int | None = None, merge: str = "bitoni
             raise ValueError(f"score_topk: {arg} must be contiguous")
     if q.device != d.device:
         raise ValueError(f"score_topk: d on {d.device}, expected {q.device}")
-    if q.device.type == "cpu":
-        return _dense.score_topk_ref(q, d, k=k, block_d=block_d)
-    if q.device.type != "cuda":
-        raise ValueError(f"score_topk: no kernel for device {q.device}")
-    out = _dense.score_topk_cuda(q, d, k=k, block_d=block_d)
-    count_launch("score_topk")
-    return out
+    dev = q.device
+    if dev.type == "cpu":
+        run = lambda: _dense.score_topk_ref(q, d, k=k, block_d=block_d)  # noqa: E731
+    elif dev.type == "meta":
+        run = lambda: _dense.outputs_meta(q, k=k)  # noqa: E731
+    elif dev.type == "cuda":
+        run = lambda: _launch("score_topk", _dense.score_topk_cuda, q, d, k=k,  # noqa: E731
+                              block_d=block_d)
+    else:
+        raise ValueError(f"score_topk: no kernel for device {dev}")
+    return counting.kernel("score_topk", lambda: _dense.cost(q, d, k=k), run)
 
 
 def lexical_scan_topk(
@@ -132,19 +151,19 @@ def lexical_scan_topk(
     if q_tokens.dim() != 2 or weights.dim() != 3 or d_tokens.dim() != 2:
         raise ValueError("lexical_scan_topk: q_tokens [n_q, L_q], weights "
                          "[n_models, n_q, L_q], d_tokens [n_d, L_d] expected")
+    args = (q_tokens, weights, ab, d_tokens, d_len)
+    kw = dict(modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec)
     if dev.type == "cpu":
-        return _lexical.lexical_scan_topk_ref(
-            q_tokens, weights, ab, d_tokens, d_len,
-            modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec,
-        )
-    if dev.type != "cuda":
+        run = lambda: _lexical.lexical_scan_topk_ref(*args, **kw)  # noqa: E731
+    elif dev.type == "meta":
+        run = lambda: _lexical.outputs_meta(q_tokens, weights, k=k)  # noqa: E731
+    elif dev.type == "cuda":
+        run = lambda: _launch("lexical_scan_topk",  # noqa: E731
+                              _lexical.lexical_scan_topk_cuda, *args, **kw)
+    else:
         raise ValueError(f"lexical_scan_topk: no kernel for device {dev}")
-    out = _lexical.lexical_scan_topk_cuda(
-        q_tokens, weights, ab, d_tokens, d_len,
-        modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec,
-    )
-    count_launch("lexical_scan_topk")
-    return out
+    return counting.kernel("lexical_scan_topk",
+                          lambda: _lexical.cost(*args, k=k, pack_spec=pack_spec), run)
 
 
 def _same_dtype(name: str, tensors: dict) -> torch.device:
@@ -182,13 +201,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if s % block_q or s % block_k:
         raise ValueError(f"sequence {s} not divisible by block_q {block_q} / block_k {block_k}")
     if dev.type == "cpu":
-        return _flash.flash_attention_ref(q, k, v, causal=causal, window=window, cap=cap)
-    if dev.type != "cuda":
+        run = lambda: _flash.flash_attention_ref(q, k, v, causal=causal,  # noqa: E731
+                                                 window=window, cap=cap)
+    elif dev.type == "meta":
+        run = lambda: torch.empty_like(q)  # noqa: E731
+    elif dev.type == "cuda":
+        run = lambda: _launch("flash_attention", _flash.flash_attention_cuda,  # noqa: E731
+                              q, k, v, causal=causal, window=window, cap=cap,
+                              block_q=block_q, block_k=block_k)
+    else:
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    out = _flash.flash_attention_cuda(q, k, v, causal=causal, window=window, cap=cap,
-                                      block_q=block_q, block_k=block_k)
-    count_launch("flash_attention")
-    return out
+    return counting.kernel("flash_attention",
+                          lambda: _flash.cost(q, k, v, causal=causal, window=window), run)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -234,11 +258,11 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
     outside ``[0, S)`` then gives NaN outputs and sets the error word that
     `flash_decode.take_error` reads. A host ``t`` (or a CPU tensor) is
     checked here, ``0 <= t < S``, and on the card copied to the device once
-    per call. ``block_s=None`` takes the active tuning's
-    ``decode_block_s`` (512 when untuned), the most positions a split of
-    the kernel takes (`flash_decode.split_plan` picks fewer to fill the
-    card). ``S`` need not be a multiple of ``block_s``: positions past
-    ``t`` are never read.
+    per call. A ``meta`` ``t`` goes with ``meta`` caches. ``block_s=None``
+    takes the active tuning's ``decode_block_s`` (512 when untuned), the
+    most positions a split of the kernel takes (`flash_decode.split_plan`
+    picks fewer to fill the card). ``S`` need not be a multiple of
+    ``block_s``: positions past ``t`` are never read.
     """
     if block_s is None:
         block_s = tune_config.active().config.decode_block_s
@@ -253,21 +277,31 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
                 or t.dtype == torch.bool:
             raise TypeError(f"flash_decode: t must be an int or one integer, got {t.dtype} "
                             f"{tuple(t.shape)}")
-        if dev.type == "cuda" and t.device == dev:
-            t_dev = t.reshape(()).to(torch.int32)  # no copy for an int32 t
-            out = _decode.flash_decode_cuda(q, k_cache, v_cache, t_dev, window=window,
-                                            cap=cap, block_s=block_s)
-            count_launch("flash_decode")
-            return out
+        if dev.type in ("cuda", "meta") and t.device == dev:
+            if dev.type == "meta":
+                run = lambda: torch.empty_like(q)  # noqa: E731
+            else:
+                run = lambda: _launch(  # noqa: E731
+                    "flash_decode", _decode.flash_decode_cuda, q, k_cache, v_cache,
+                    t.reshape(()).to(torch.int32),  # no copy for an int32 t
+                    window=window, cap=cap, block_s=block_s)
+            return counting.kernel(
+                "flash_decode",
+                lambda: _decode.cost(q, k_cache, v_cache, None, window=window), run)
     t = int(t)
     if not 0 <= t < k_cache.shape[1]:
         raise ValueError(f"flash_decode: position t={t} outside a cache of {k_cache.shape[1]}")
     if dev.type == "cpu":
-        return _decode.flash_decode_ref(q, k_cache, v_cache, t, window=window, cap=cap)
-    if dev.type != "cuda":
+        run = lambda: _decode.flash_decode_ref(q, k_cache, v_cache, t,  # noqa: E731
+                                               window=window, cap=cap)
+    elif dev.type == "meta":
+        run = lambda: torch.empty_like(q)  # noqa: E731
+    elif dev.type == "cuda":
+        run = lambda: _launch(  # noqa: E731
+            "flash_decode", _decode.flash_decode_cuda, q, k_cache, v_cache,
+            torch.tensor(t, dtype=torch.int32, device=dev), window=window, cap=cap,
+            block_s=block_s)
+    else:
         raise ValueError(f"flash_decode: no kernel for device {dev}")
-    t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
-    out = _decode.flash_decode_cuda(q, k_cache, v_cache, t_dev, window=window, cap=cap,
-                                    block_s=block_s)
-    count_launch("flash_decode")
-    return out
+    return counting.kernel("flash_decode",
+                          lambda: _decode.cost(q, k_cache, v_cache, t, window=window), run)

@@ -182,6 +182,24 @@ def score_topk_ref(
     return state_s.contiguous(), state_i.contiguous()
 
 
+def cost(q: torch.Tensor, d: torch.Tensor, *, k: int) -> dict:
+    """The least work of one call (PERF.md's Bound column): the queries and
+    the corpus read once, ``(scores, ids)`` written once; the products at
+    float32-level accuracy, three TF32 products a multiply-add for float32
+    (``tf32``: the kernel's hi/lo split), one for bfloat16 (``bf16``)."""
+    n_q, dim = q.shape
+    ops_count = 2 * n_q * d.shape[0] * dim
+    flops = ({"tf32": 3 * ops_count} if q.dtype == torch.float32 else {"bf16": ops_count})
+    return {"flops": flops,
+            "bytes": (q.numel() + d.numel()) * q.element_size() + n_q * k * 8}
+
+
+def outputs_meta(q: torch.Tensor, *, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The call's ``(scores, ids)`` on the ``meta`` device: shapes, no data."""
+    return (torch.empty((q.shape[0], k), dtype=torch.float32, device="meta"),
+            torch.empty((q.shape[0], k), dtype=torch.int32, device="meta"))
+
+
 def _smem_bytes(n_qp: int, row_bytes: int, tile_docs: int, stages: int, cap: int) -> int:
     """The ring, the queries (rows padded by 16 bytes), each query's local
     threshold, buffer count, list length and r-th and k-th keys, and each

@@ -28,7 +28,7 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, w):
         ctx.save_for_backward(x2, w)
-        if x2.is_cuda and x2.dtype == torch.bfloat16:
+        if (x2.is_cuda or x2.is_meta) and x2.dtype == torch.bfloat16:
             return torch.mm(x2, w, out_dtype=torch.float32)
         return x2.float() @ w.float()
 

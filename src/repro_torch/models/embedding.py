@@ -4,7 +4,9 @@ per-field lookup, the padded and ragged bags, and the vocab-sharded lookup.
 Indices follow JAX's rules, where the reference indexes bare: a negative id
 wraps once (``-1`` is the last row) and an id past either end is clamped to
 it; torch raises on the CPU and asserts on a card for those, so
-:func:`jax_index` maps every id to the row JAX reads first. Gathers whose
+:func:`jax_index` maps every id to the row JAX reads first. An id outside
+``[-n, n)`` passes no gradient (:func:`outside_without_grad`): JAX clamps it
+in the gather but drops it in the gather's transpose. Gathers whose
 gradient is a scatter go through ``F.embedding``, whose backward on the
 card sorts instead of adding atomically, so a training step gives the same
 bits every run.
@@ -33,11 +35,25 @@ def jax_index(ids: torch.Tensor, n: int) -> torch.Tensor:
     return ids.clamp(0, n - 1)
 
 
+def outside_without_grad(rows: torch.Tensor, ids: torch.Tensor, n: int,
+                         table: torch.Tensor) -> torch.Tensor:
+    """``rows [..., D]`` looked up for ``ids [...]`` into ``n`` rows of
+    ``table``, with no gradient through an id outside ``[-n, n)``: the same
+    values, as JAX's clamped gather reads them, but the gather's transpose
+    (a scatter that drops such an id) gives its clamped row nothing. Only
+    under autograd; no host read."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return rows
+    ok = (ids >= -n) & (ids < n)
+    return torch.where(ok[..., None], rows, rows.detach())
+
+
 def field_embed(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Per-field lookup. tables [F, V, D], ids [B, F] -> [B, F, D]."""
     f, v, d = tables.shape
-    rows = jax_index(ids.long(), v) + v * torch.arange(f, device=ids.device)
-    return F.embedding(rows, tables.reshape(f * v, d))
+    ids = ids.long()
+    rows = jax_index(ids, v) + v * torch.arange(f, device=ids.device)
+    return outside_without_grad(F.embedding(rows, tables.reshape(f * v, d)), ids, v, tables)
 
 
 def embedding_bag(
@@ -48,7 +64,10 @@ def embedding_bag(
     mask: torch.Tensor | None = None,  # [B, L] bool; default: ids >= 0
     weights: torch.Tensor | None = None,  # [B, L] per-sample weights
 ) -> torch.Tensor:
-    """Padded-bag EmbeddingBag: gather + masked reduce -> [B, D]."""
+    """Padded-bag EmbeddingBag: gather + masked reduce -> [B, D]. The ids
+    are clipped into the table first, as the reference clips them, so an id
+    outside it passes its gradient to the end row it reads (where the mask
+    keeps it)."""
     if mask is None:
         mask = ids >= 0
     e = F.embedding(ids.long().clamp(0, table.shape[0] - 1), table)  # [B, L, D]
@@ -75,13 +94,16 @@ def embedding_bag_ragged(
     mode: str = "sum",
 ) -> torch.Tensor:
     """Ragged EmbeddingBag via a segment reduce -> [num_bags, D]; a segment
-    id outside ``[0, num_bags)`` is dropped, an empty bag is 0 (``sum``,
+    id outside ``[0, num_bags)`` is dropped, a value outside ``[-V, V)`` reads
+    its clamped row without a gradient, an empty bag is 0 (``sum``,
     ``mean``) or -inf (``max``), as ``jax.ops.segment_*`` give them. The
     reduce is `repro_torch.models.segment`'s (sorted runs, no atomics), and
     so is the lookup's backward (`segment.gather`; `F.embedding`'s gave
     other bits from run to run on an H100 at 200,000 ids into 500 rows), so
     a card gives the same bits every call, gradients included."""
-    e = segment.gather(table, jax_index(values.long(), table.shape[0]))
+    n = table.shape[0]
+    values = values.long()
+    e = outside_without_grad(segment.gather(table, jax_index(values, n)), values, n, table)
     seg = segment.segments(segment_ids, num_bags)
     if mode == "sum":
         return seg.sum(e)

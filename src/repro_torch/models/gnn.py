@@ -47,11 +47,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.distributed.sharding import all_gather_parts, psum_parts
+from repro_torch.distributed.sharding import all_gather_parts, psum_parts, replicated_specs
 from repro_torch.models import segment as seg_lib
 from repro_torch.models.common import init_dense
 from repro_torch.models.embedding import jax_index
 from repro_torch.models.transformer import ParamSpec
+from repro_torch.obs import counting
 
 EPS = 1e-5
 # destinations are aggregated in blocks of at most this many edges: a
@@ -112,11 +113,10 @@ def init_params(cfg: GNNConfig, d_feat: int, generator: torch.Generator | None =
 
 
 def param_specs(cfg: GNNConfig, rules) -> dict:
-    """The parameters' sharding specs (replicated): a spec for the lowering
-    tools, which wait for their slice of the port."""
-    raise NotImplementedError(
-        "param_specs is a sharding spec for the lowering tools, which wait for their slice "
-        "of the port (ROADMAP queue 1 item 2, slice 12)")
+    """PNA is tiny (d 75): every parameter replicated, the parallelism is
+    over edges (the reference's specs, ``d_feat`` 1 as it builds them)."""
+    del rules
+    return replicated_specs(param_shapes(cfg, 1))
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -184,8 +184,15 @@ class _PMax(torch.autograd.Function):
 def pmax_diff(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """Differentiable cross-shard max over the shards' partials ``xs`` (in
     shard order): each shard's copy of the max; grads split equally among
-    the shards that attain it (pmax itself has no AD rule)."""
-    return list(_PMax.apply(*xs))
+    the shards that attain it (pmax itself has no AD rule). An op counter in
+    force sees an all-reduce (and in the backward the count's psum)."""
+    out = list(_PMax.apply(*xs))
+    if counting.active() is not None and len(xs) > 1:
+        counting.collective("all-reduce", counting.tensor_bytes(xs[0]), len(xs))
+        if out[0].requires_grad:
+            out[0].register_hook(lambda g: counting.collective(
+                "all-reduce", counting.tensor_bytes(xs[0]), len(xs)))
+    return out
 
 
 def pmin_diff(xs: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -234,11 +241,14 @@ def _message(h_src, h_dst, lp):
 def _src_rows(src: torch.Tensor, n: int):
     """JAX's ``h[src]`` over ``n`` rows: the rows ``jax_index`` reads, and a
     mask of the ids inside ``[-n, n)`` when some are not (None otherwise;
-    one host read). JAX clamps such an id in the forward, but the gather's
-    transpose drops it: its edge passes no gradient to ``h`` (its message
-    still passes one to ``w_src``)."""
+    one host read, none on ``meta``, which keeps the mask). JAX clamps such
+    an id in the forward, but the gather's transpose drops it: its edge
+    passes no gradient to ``h`` (its message still passes one to
+    ``w_src``)."""
     src = src.long()
     ok = (src >= -n) & (src < n)
+    if src.is_meta:
+        return jax_index(src, n), ok
     return jax_index(src, n), (None if bool(ok.all()) else ok)
 
 

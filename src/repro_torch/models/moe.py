@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import all_gather_parts, psum_parts
 from repro_torch.models.common import activation_fn, matmul_f32
+from repro_torch.obs import counting
 
 MODES = ("train", "seq", "replicated")
 
@@ -236,20 +237,26 @@ def make_moe_layer(
                     all_gather_parts([w_up[ex, :, sl].to(dev) for sl in fs], 2),
                     all_gather_parts([w_down[ex, sl].to(dev) for sl in fs], 1))
 
-        partial, aux = {}, {}
-        for di in range(n_dp):
-            for ti in range(n_tp):
-                dev = device(di, ti)
-                if mode == "seq":  # all-gather the sequence over tp
-                    xl = all_gather_parts([x_local(di, tj).to(dev) for tj in range(n_tp)], 1)
-                else:
-                    xl = x_local(di, ti)
-                bl, sl, _ = xl.shape
-                y, a = moe_ffn_local(
-                    xl.reshape(bl * sl, d), router_w.to(xl.device), *weights(di, ti),
-                    n_experts=n_experts, top_k=top_k, capacity=capacity, e0=ti * e_loc,
-                    activation=activation)
-                partial[di, ti], aux[di, ti] = y.reshape(bl, sl, d), a
+        def shard(flat: int):
+            di, ti = divmod(flat, n_tp)
+            dev = device(di, ti)
+            if mode == "seq":  # all-gather the sequence over tp
+                xl = all_gather_parts([x_local(di, tj).to(dev) for tj in range(n_tp)], 1)
+            else:
+                xl = x_local(di, ti)
+            bl, sl, _ = xl.shape
+            y, a = moe_ffn_local(
+                xl.reshape(bl * sl, d), router_w.to(xl.device), *weights(di, ti),
+                n_experts=n_experts, top_k=top_k, capacity=capacity, e0=ti * e_loc,
+                activation=activation)
+            return y.reshape(bl, sl, d), a
+
+        # every shard's body has the same shapes (an op counter on meta runs one)
+        args = (x, router_w, w_gate, w_up, w_down)
+        no_grad = not (torch.is_grad_enabled() and any(t.requires_grad for t in args))
+        outs = counting.each_shard(n_dp * n_tp, shard, meta=x.is_meta and no_grad)
+        partial = {divmod(i, n_tp): y for i, (y, _) in enumerate(outs)}
+        aux = {divmod(i, n_tp): a for i, (_, a) in enumerate(outs)}
 
         if mode == "replicated":
             dps = range(n_dp) if fsdp_experts else range(1)

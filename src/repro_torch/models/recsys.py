@@ -16,8 +16,9 @@ draws from a ``torch.Generator``, so its numbers are not the reference's
 (`repro_torch.convert.tree_from_numpy` carries the reference's own across).
 Lookups follow JAX's indexing (`embedding.jax_index`): the history gathers
 clip at 0 as the reference's do, and an id past the end of a table reads
-its last row. ``param_specs`` is a sharding spec for the lowering tools,
-which wait for their slice of the port (ROADMAP queue 1 item 7).
+its last row, with no gradient where the id lies outside ``[-n, n)`` (the
+reference's gather drops it in the transpose). ``param_specs`` gives the
+reference's sharding specs as tuples (every table replicated).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.distributed.sharding import replicated_specs
 from repro_torch.models.common import init_dense
-from repro_torch.models.embedding import field_embed, jax_index
+from repro_torch.models.embedding import field_embed, jax_index, outside_without_grad
 from repro_torch.models.transformer import ParamSpec
 
 
@@ -119,11 +121,10 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator | None = None,
 
 
 def param_specs(cfg: RecsysConfig, rules) -> dict:
-    """The tables' sharding specs: a spec for the lowering tools, which
-    wait for their slice of the port."""
-    raise NotImplementedError(
-        "param_specs is a sharding spec for the lowering tools, which wait for their slice "
-        "of the port (ROADMAP queue 1 item 7)")
+    """The reference's baseline: every table replicated (they fit: at most
+    1.7 GB); the batch goes over the whole mesh."""
+    del rules
+    return replicated_specs(param_shapes(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +137,10 @@ def _rms(x, w):
 
 
 def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` as JAX indexes it (wrap negatives once, clamp)."""
-    return F.embedding(jax_index(ids.long(), table.shape[0]), table)
+    """``table[ids]`` as JAX indexes it (wrap negatives once, clamp; an id
+    outside ``[-n, n)`` passes no gradient)."""
+    ids, n = ids.long(), table.shape[0]
+    return outside_without_grad(F.embedding(jax_index(ids, n), table), ids, n, table)
 
 
 def fm_forward(params, batch, cfg: RecsysConfig) -> torch.Tensor:

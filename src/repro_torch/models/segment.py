@@ -28,6 +28,12 @@ The rules are those of ``jax.ops.segment_*``:
 * an empty segment gives 0 for sum and count, ``-inf`` for max and
   ``+inf`` for min;
 * a tied max or min splits its gradient equally among the tied rows.
+
+On ``meta`` tensors (an op counter's reckoning of a step, no data) the
+host reads cannot run, and the general path is taken: the ids are sorted,
+every row counts as kept, and :meth:`Segments.blocks` cuts the ids into
+equal ranges as if the rows spread evenly over them. Results on real
+tensors do not change.
 """
 
 from __future__ import annotations
@@ -100,6 +106,8 @@ class Segments:
         ``(i0, i1, segments of that range)``, its ids counted from ``i0``.
         No id's rows are split, so a reduce over the ranges gives each id
         the bits of one reduce over all of them."""
+        if self.offsets.is_meta:
+            return self._even_blocks(max_rows)
         off = self.host_offsets()
         out, i0 = [], 0
         while i0 < self.n:
@@ -107,6 +115,19 @@ class Segments:
             i1 = min(max(i1, i0 + 1), self.n)
             out.append((i0, i1, self._range(i0, i1)))
             i0 = i1
+        return out
+
+    def _even_blocks(self, max_rows: int) -> list[tuple[int, int, Segments]]:
+        """``blocks`` without the offsets' values (``meta``): equal id
+        ranges, each taking its share of the rows."""
+        n_blocks = max(1, -(-self.n_valid // max_rows))
+        out = []
+        for j in range(min(n_blocks, self.n)):
+            i0, i1 = self.n * j // n_blocks, self.n * (j + 1) // n_blocks
+            e0, e1 = self.n_valid * j // n_blocks, self.n_valid * (j + 1) // n_blocks
+            order = None if self.order is None else self.order[e0:e1]
+            out.append((i0, i1, Segments(order, self.offsets[i0:i1 + 1] - e0, i1 - i0,
+                                         e1 - e0, self.start + e0)))
         return out
 
     def _range(self, i0: int, i1: int) -> Segments:
@@ -172,16 +193,17 @@ def segments(ids: torch.Tensor, n: int) -> Segments:
     """Group the rows of ``ids [E]`` by id in ``[0, n)``, dropping the
     rest. A stable sort keeps rows of one id in their given order; ids that
     already come sorted (with the dropped ones, if any, at the end) are not
-    sorted again. Reads two numbers on the host."""
+    sorted again. Reads two numbers on the host (none on ``meta``: sorted,
+    every row kept)."""
     key = ids.long()
     key = torch.where((key >= 0) & (key < n), key, n)  # dropped rows sort last
-    if key.numel() > 1 and not bool((key[1:] >= key[:-1]).all()):
+    if key.is_meta or (key.numel() > 1 and not bool((key[1:] >= key[:-1]).all())):
         order = torch.sort(key, stable=True).indices
         key = key[order]
     else:
         order = None
     offsets = torch.searchsorted(key, torch.arange(n + 1, device=key.device))
-    n_valid = int(offsets[-1])
+    n_valid = key.numel() if key.is_meta else int(offsets[-1])
     if order is not None:
         order = order[:n_valid]
     return Segments(order, offsets, n, n_valid)

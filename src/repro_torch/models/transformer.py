@@ -38,9 +38,9 @@ What differs from the reference, and why:
   reference's own parameters across for the parity tests);
 * the serve step attends over a KV cache on one device: a cache whose
   sequence axes span several shards (the reference's
-  ``decode_attend_seqsharded``) is refused, naming its slice; the loss runs
-  on one ``dp`` shard and one ``tp`` shard (a larger mesh is refused,
-  naming the multi-card slice).
+  ``decode_attend_seqsharded``) is refused, and the loss runs on one ``dp``
+  shard and one ``tp`` shard (a larger mesh is refused): both name the
+  multi-shard slice, ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -162,6 +162,41 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     else:
         layers.update(w_gate=s(l, d, f), w_up=s(l, d, f), w_down=s(l, f, d))
     return {"embed": s(v, d), "layers": layers, "final_norm": s(d), "unembed": s(d, v)}
+
+
+def heads_divisible(cfg: TransformerConfig, tp_size: int) -> bool:
+    return cfg.n_heads % tp_size == 0
+
+
+def param_specs(cfg: TransformerConfig, rules: AxisRules, tp_size: int) -> dict:
+    """The reference's sharding specs of `param_shapes`, each a tuple of a
+    leaf's physical axis groups (`AxisRules.spec`): attention over ``tp``
+    where the heads divide it, the dense FFN Megatron-style, experts over
+    ``tp`` (and ``d_ff`` over ``dp`` under `uses_fsdp_experts`), the
+    embedding and unembedding over ``tp``."""
+    attn_tp = heads_divisible(cfg, tp_size)
+    rep = rules.spec
+    layers = {
+        "attn_norm": rep(None, None),
+        "wq": rep(None, None, "tp") if attn_tp else rep(None, None, None),
+        "wk": rep(None, None, None),
+        "wv": rep(None, None, None),
+        "wo": rep(None, "tp", None) if attn_tp else rep(None, None, None),
+        "ffn_norm": rep(None, None),
+    }
+    if cfg.is_moe:
+        fsdp = "dp" if uses_fsdp_experts(cfg) else None
+        layers.update(
+            router=rep(None, None, None),
+            w_gate=rep(None, "tp", None, fsdp),
+            w_up=rep(None, "tp", None, fsdp),
+            w_down=rep(None, "tp", fsdp, None),
+        )
+    else:
+        layers.update(w_gate=rep(None, None, "tp"), w_up=rep(None, None, "tp"),
+                      w_down=rep(None, "tp", None))
+    return {"embed": rep(None, "tp"), "layers": layers, "final_norm": rep(None),
+            "unembed": rep(None, "tp")}
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None,
@@ -382,13 +417,13 @@ def make_loss_fn(ctx: ModelContext | TransformerConfig, aux_weight: float = 0.01
     chunk's logits are recomputed in the backward, so no ``[B,S,V]`` float32
     tensor lives (the reference's checkpointed scan). One ``dp`` shard and
     one ``tp`` shard: a mesh with more (a data-parallel or vocab-parallel
-    loss) waits for the multi-card slice (ROADMAP queue 1 item 9)."""
+    loss) waits for the multi-shard slice (ROADMAP queue 1 item 3)."""
     ctx = _context(ctx)
     cfg = ctx.cfg
     if ctx.mesh is not None and ctx.mesh.size > 1:
         raise NotImplementedError(
             f"the loss runs on one dp and one tp shard, not a {ctx.mesh.shape} mesh: a "
-            "sharded loss waits for the multi-card slice of the port (ROADMAP queue 1 item 9)")
+            "sharded loss waits for the multi-shard slice of the port (ROADMAP queue 1 item 3)")
     cap = cfg.final_softcap
 
     def xent(x, unembed, labels):
@@ -425,6 +460,17 @@ def cache_shapes(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
     return {"k": ParamSpec(shp, _dtype(cfg)), "v": ParamSpec(shp, _dtype(cfg))}
 
 
+def cache_specs(cfg: TransformerConfig, rules: AxisRules, batch: int) -> dict:
+    """The cache's sharding specs, the reference's: ``[L, B, S, KV, hd]``
+    with the batch over ``dp`` and the sequence over :func:`decode_layout`'s
+    axes."""
+    del cfg
+    seq_axes, batch_spec = decode_layout(rules, batch)
+    seq = seq_axes[0] if len(seq_axes) == 1 else seq_axes  # as PartitionSpec writes one axis
+    spec = (None, batch_spec, seq, None, None)
+    return {"k": spec, "v": spec}
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device=None) -> dict:
     return {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
             for name, spec in cache_shapes(cfg, batch, max_len).items()}
@@ -451,8 +497,8 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
     sequence (the reference's ``decode_layout``: over every axis at batch
     1, over ``tp`` otherwise) across more than one shard, the reference
     attends with ``decode_attend_seqsharded`` (partials per shard and a
-    log-sum-exp merge); that waits for the sequence-sharded decode slice of
-    the port, and this raises.
+    log-sum-exp merge); that waits for the multi-shard slice of the port
+    (ROADMAP queue 1 item 3), and this raises.
     """
     ctx = _context(ctx)
     cfg = ctx.cfg
@@ -462,8 +508,8 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
         if n_seq > 1:
             raise NotImplementedError(
                 f"a KV cache sharded over {seq_axes} ({n_seq} shards) needs "
-                "decode_attend_seqsharded, which waits for the sequence-sharded decode "
-                "slice of the port")
+                "decode_attend_seqsharded, which waits for the multi-shard slice of the port "
+                "(ROADMAP queue 1 item 3)")
     windows = _layer_windows(cfg)
     dt = _dtype(cfg)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -482,6 +528,9 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
             if not 0 <= t < cache["k"].shape[2]:
                 raise ValueError(f"position t={t} outside a cache of {cache['k'].shape[2]}")
             t_dev = torch.full((), t, dtype=torch.int32, device=dev)
+        # a meta tensor has no value: there the kernels take the host int, so
+        # that an op counter charges the decode at that position
+        t_kern = t if dev.type == "meta" and not isinstance(t, torch.Tensor) else t_dev
         pos = t_dev.view(1)
         x = _embed(params, tokens, cfg)  # [B, D]
         cos, sin = rope_angles(pos, hd, cfg.rope_theta)
@@ -498,7 +547,7 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
             # kernel then reads positions <= t, and no step copies the cache
             cache["k"][i].index_copy_(1, slot, kn[:, None].to(cache["k"].dtype))
             cache["v"][i].index_copy_(1, slot, vn[:, None].to(cache["v"].dtype))
-            o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t_dev,
+            o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t_kern,
                                  window=_window(cfg) if windowed else None,
                                  cap=cfg.attn_softcap).to(dt)
             x = x + (o.reshape(b, h * hd) @ lp["wo"]).to(dt)

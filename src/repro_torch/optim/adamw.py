@@ -14,9 +14,9 @@ moments into the tensors it is given (the reference donates them to its
 jitted step), so a step holds no second copy of the training state; it
 returns them as well.
 
-``opt_state_specs`` (the ZeRO-1 sharding of the moments over ``dp``) is a
-sharding spec for the lowering tools, which wait for their slice of the
-port (ROADMAP queue 1 item 7).
+``opt_state_specs`` gives the moments' sharding specs as the reference's
+(the parameters', plus ZeRO-1: a ``dp``-replicated moment is sharded over
+``dp`` on its first divisible dim), each a tuple of axis groups.
 """
 
 from __future__ import annotations
@@ -145,9 +145,26 @@ def adamw_update(
     return params, state, gnorm
 
 
+def _zero1_spec(spec: tuple, shape: tuple, rules: Any, dp_size: int) -> tuple:
+    """Extra-shard a moment over dp on the first divisible unsharded dim."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a:
+                used.add(a)
+    if any(a in used for a in rules.dp):
+        return spec  # already dp-sharded somewhere
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dim % dp_size == 0 and dim > 0:
+            entries[i] = rules.dp if len(rules.dp) > 1 else rules.dp[0]
+            return tuple(entries)
+    return spec
+
+
 def opt_state_specs(param_specs, param_shapes, rules: Any, dp_size: int, *, zero1: bool = True):
-    """The moments' sharding specs (ZeRO-1 over ``dp``): a spec for the
-    lowering tools, which wait for their slice of the port."""
-    raise NotImplementedError(
-        "opt_state_specs is a sharding spec for the lowering tools, which wait for their "
-        "slice of the port (ROADMAP queue 1 item 7)")
+    """Moment specs = the parameters' (+ ZeRO-1 over ``dp`` when ``zero1``);
+    the step replicated (``()``)."""
+    mspec = (tree_map(lambda sp, sh: _zero1_spec(sp, tuple(sh.shape), rules, dp_size),
+                      param_specs, param_shapes) if zero1 else param_specs)
+    return AdamWState(step=(), m=mspec, v=mspec)

@@ -1059,3 +1059,57 @@ def test_cuda_gnn_matches_the_cpu_and_repeats_its_bytes():
                 assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), name
             for a, b in zip(card[name], again[name]):
                 assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.cuda
+def test_cuda_the_meta_count_of_a_danube_step_reckons_its_peak_memory():
+    """`launch.opcount` on meta tensors reckons one training step's peak
+    live bytes: h2o-danube-1.8b at full width and 2 layers, 2 x 2,048
+    tokens, the train driver's step; within 25% of the card's
+    ``max_memory_allocated`` over the same step (parameters, moments and
+    batch included on both sides)."""
+    import dataclasses
+
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.launch import cells, opcount
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=2)
+    b, s = 2, 2048
+    schedule = adamw.cosine_schedule(1e-3, warmup=1, total=4)
+
+    def step_on(mesh):
+        loss_fn, _, _ = train_cli.build_lm(cfg, mesh, rules_for_mesh(mesh), batch=b, seq=s, seed=0)
+        return train_cli.make_train_step(loss_fn, schedule)
+
+    shapes = tfm.param_shapes(cfg)
+    meta_args = (cells.abstract(shapes), cells.abstract(adamw.adamw_state_shapes(shapes)),
+                 torch.empty((), device="meta"),
+                 {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta"),
+                  "labels": torch.empty((b, s), dtype=torch.int32, device="meta")})
+    with opcount.OpCounter(1) as counter:
+        counter.track(meta_args)
+        step_on(cells.meta_mesh("1"))(*meta_args)
+    reckoned = counter.result()["peak_bytes"]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what earlier tests left on the card
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw.adamw_init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    ef = torch.zeros((), device=dev)
+    step = step_on(make_test_mesh(1, 1, device="cuda"))
+    step(params, opt, ef, batch)  # the first step's library workspaces stay out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, ef, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    assert abs(reckoned / measured - 1) <= 0.25, (reckoned, measured)

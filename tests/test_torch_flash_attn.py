@@ -111,9 +111,13 @@ def test_flash_attention_wrapper_checks():
         ops.flash_attention(q, k, k, block_q=96, block_k=64)
     with pytest.raises(ValueError, match="KV dividing H"):
         ops.flash_attention(q, torch.zeros((1, 128, 3, 32)), torch.zeros((1, 128, 3, 32)))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(*(t.to("meta") for t in (q, k, k)), block_q=64, block_k=64)
     before = dict(ops.LAUNCHES)
+    # meta tensors launch nothing: an output of q's shape and dtype, no data
+    out = ops.flash_attention(*(t.to("meta") for t in (q, k, k)), block_q=64, block_k=64)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.flash_attention(*(t.to("meta") for t in (q, k, k)), block_q=96, block_k=64)
+    assert ops.LAUNCHES == before
     ops.flash_attention(q, k, k, block_q=64, block_k=64)
     assert ops.LAUNCHES == before  # the CPU path launches nothing
 

@@ -99,9 +99,14 @@ def test_flash_decode_wrapper_and_kernel_checks():
         ops.flash_decode(q.to(torch.bfloat16), kc, kc, 3)
     with pytest.raises(ValueError, match="KV dividing"):
         ops.flash_decode(torch.zeros((2, 5, 32)), kc, kc, 3)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_decode(q.to("meta"), kc.to("meta"), kc.to("meta"), 3)
     before = dict(ops.LAUNCHES)
+    # meta tensors launch nothing: an output of q's shape and dtype, no data
+    for t in (3, torch.tensor(3, dtype=torch.int32, device="meta")):
+        out = ops.flash_decode(q.to("meta"), kc.to("meta"), kc.to("meta"), t)
+        assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    with pytest.raises(ValueError, match="outside a cache"):
+        ops.flash_decode(q.to("meta"), kc.to("meta"), kc.to("meta"), 64)
+    assert ops.LAUNCHES == before
     ops.flash_decode(q, kc, kc, 3)
     assert ops.LAUNCHES == before  # the CPU path launches nothing
     flash_decode.check_geometry(torch.bfloat16, 8, 4, 256, 512)  # gemma2-2b

@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                    "models/recsys.py", "configs/archs/fm.py", "configs/archs/dcn_v2.py",
                    "configs/archs/mind.py", "configs/archs/sasrec.py", "models/gnn.py",
                    "models/segment.py", "data/graph_prep.py", "data/sampler.py",
-                   "configs/archs/pna.py", "configs/shapes.py"):
+                   "configs/archs/pna.py", "configs/shapes.py", "launch/cells.py",
+                   "launch/dryrun.py", "launch/opcount.py", "launch/roofline.py",
+                   "obs/counting.py"):
         assert module in names
     examples = {p.name for p in files if p.parent == ROOT / "examples"}
     assert {"torch_quickstart.py", "torch_train_lm.py",
@@ -55,6 +57,23 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN) for p in files
     }
     assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_layers_below_launch_import_nothing_of_it():
+    """The kernels, the cross-shard merges and the models report to an op
+    counter through `repro_torch.obs.counting`, never through the launch
+    layer (the drivers and CLIs), so no import of theirs can cycle back."""
+    low = ("kernels", "core", "distributed", "models", "obs", "optim", "configs")
+    offenders = {}
+    for pkg in low:
+        for path in sorted((PORT / pkg).rglob("*.py")):
+            for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+                bad = [n for n in names if n.startswith("repro_torch.launch")]
+                if bad:
+                    offenders.setdefault(str(path.relative_to(PORT)), []).extend(bad)
+    assert offenders == {}
 
 
 def test_port_imports_with_jax_blocked():

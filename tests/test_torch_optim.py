@@ -120,8 +120,10 @@ def test_clipping_and_the_state_helpers():
     shapes = adamw.adamw_state_shapes(convert.params_from_numpy(grads), torch.bfloat16)
     assert shapes.m["b"]["d"].shape == (3, 2, 4) and shapes.v["a"].dtype == torch.bfloat16
     assert shapes.step.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="lowering tools"):
-        adamw.opt_state_specs(None, None, None, 1)
+    from repro_torch.distributed.sharding import RULES_SINGLE_POD
+    specs = adamw.opt_state_specs({"a": (None, None)}, {"a": shapes.m["a"]}, RULES_SINGLE_POD,
+                                  7)  # ZeRO-1: the first dim dividing dp goes over it
+    assert specs.step == () and specs.m == {"a": (None, "data")} == specs.v
 
 
 def _kept(sparse, acc, k):

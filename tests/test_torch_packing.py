@@ -102,6 +102,30 @@ def test_out_of_range_tokens_raise():
         packing.unpack_tokens(torch.zeros((5, 8), dtype=torch.uint8), spec, pad_to=3)
 
 
+@pytest.mark.parametrize("dtype, bad", [
+    (np.int32, 65_536), (np.int32, -2), (np.int64, 1 << 40), (np.uint32, (1 << 32) - 1),
+    (np.int16, -32_768)])
+def test_out_of_range_bitpack_tokens_of_any_integer_dtype_raise(dtype, bad):
+    """The range check of a block (its least and largest value) refuses what
+    the reference refuses, in any integer dtype; the in-range tokens of that
+    dtype pack to the reference's bytes."""
+    vocab = 65_536 if dtype != np.int16 else 20_000
+    spec, ref_spec = packing.make_spec(vocab, 40, "bitpack"), ref_packing.make_spec(vocab, 40,
+                                                                                   "bitpack")
+    toks, _ = _tokens(7, 6, 40, vocab)
+    if np.iinfo(dtype).min == 0:
+        toks[toks == packing.PAD_TOKEN] = 0  # an unsigned matrix holds no PAD
+    toks = toks.astype(dtype)
+    assert packing.pack_tokens(toks, spec).tobytes() == np.asarray(
+        ref_packing.pack_tokens(toks, ref_spec)).tobytes()
+    toks[4, 3] = bad
+    with pytest.raises(ValueError, match=rf"outside \[0, {vocab}\)") as got:
+        packing.pack_tokens(toks, spec)
+    with pytest.raises(ValueError) as want:
+        ref_packing.pack_tokens(toks, ref_spec)
+    assert str(got.value) == str(want.value)
+
+
 def test_bitpack_zero_padding_past_the_length_is_dropped():
     """Bit-planes pad the last group of 32 with zeros, and 0 is a real term:
     decode must stop at L."""

@@ -123,8 +123,8 @@ def test_dcn_retrieval_block(mesh):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     with pytest.raises(ValueError, match="full-forward"):
         recsys.user_query_vector({}, {}, configs.reduced_config("dcn-v2"))
-    with pytest.raises(NotImplementedError, match="lowering tools"):
-        recsys.param_specs(configs.reduced_config("dcn-v2"), None)
+    specs = recsys.param_specs(configs.reduced_config("dcn-v2"), None)  # replicated
+    assert specs["cross_w"] == (None, None, None) and specs["head_b"] == (None,)
 
 
 def test_lookups_follow_jax_indexing():
