@@ -153,28 +153,64 @@ def _record(out: torch.Tensor, kind: str, payload: int, group: int, grad_kind: s
         out.register_hook(lambda g: counting.collective(grad_kind, grad_payload, group))
 
 
-def all_gather_parts(parts: list, dim: int = 0) -> torch.Tensor:
+def all_gather_parts(parts: list, dim: int = 0, group: int | None = None) -> torch.Tensor:
     """An all-gather: the shards' parts joined in shard order on the first
-    one's device; one part is returned as it is (no copy)."""
-    if len(parts) == 1:
-        return parts[0]
-    dev = parts[0].device
-    out = torch.cat([p.to(dev) for p in parts], dim=dim)
-    _record(out, "all-gather", counting.tensor_bytes(out), len(parts), "reduce-scatter",
-            counting.tensor_bytes(parts[0]))
+    one's device; one part is returned as it is (no copy). ``group``: the
+    shards the gather spans, where each part already joins the shards that
+    share its device (:func:`device_runs`; default one part a shard)."""
+    group = group or len(parts)
+    out, share = parts[0], counting.tensor_bytes(parts[0])
+    if len(parts) > 1:
+        out = torch.cat([p.to(out.device) for p in parts], dim=dim)
+    else:
+        share //= group
+    _record(out, "all-gather", counting.tensor_bytes(out), group, "reduce-scatter", share)
     return out
 
 
-def psum_parts(parts: list) -> torch.Tensor:
+def psum_parts(parts: list, group: int | None = None) -> torch.Tensor:
     """A psum: the shards' partials added left to right on the first one's
-    device."""
+    device. ``group``: the shards the sum spans, where each part already
+    sums the shards that share its device (:func:`device_runs`; default one
+    part a shard)."""
     dev = parts[0].device
     out = parts[0]
-    for p in parts[1:]:
-        out = out + p.to(dev)
-    _record(out, "all-reduce", counting.tensor_bytes(out), len(parts), "all-reduce",
+    if len(parts) > 1 and out.is_meta and all(p is out for p in parts):
+        # one shard's part standing for all (`counting.each_shard` on meta):
+        # one add, counted for each of the n - 1
+        with counting.repeated(len(parts) - 1):
+            out = out + out
+    else:
+        for p in parts[1:]:
+            out = out + p.to(dev)
+    _record(out, "all-reduce", counting.tensor_bytes(out), group or len(parts), "all-reduce",
             counting.tensor_bytes(out))
     return out
+
+
+def pmax_parts(parts: list, group: int | None = None) -> torch.Tensor:
+    """A pmax: the elementwise maximum of the shards' parts on the first
+    one's device, an all-reduce recorded as :func:`psum_parts` records one
+    (``group`` as there). The port takes no gradient through it."""
+    dev = parts[0].device
+    out = parts[0] if len(parts) == 1 else torch.stack([p.to(dev) for p in parts]).amax(dim=0)
+    _record(out, "all-reduce", counting.tensor_bytes(out), group or len(parts), "all-reduce",
+            counting.tensor_bytes(out))
+    return out
+
+
+def device_runs(devices) -> list[tuple[torch.device, int, int]]:
+    """``(device, start, stop)`` for each run of consecutive shards on one
+    device: shards that share a device compute as one batch (one
+    product, one kernel launch) and reduce among themselves before a
+    collective crosses devices. On one card a mesh is one run."""
+    runs: list = []
+    for i, d in enumerate(devices):
+        if runs and runs[-1][0] == d:
+            runs[-1] = (d, runs[-1][1], i + 1)
+        else:
+            runs.append((d, i, i + 1))
+    return runs
 
 
 def constrain(x, mesh: Mesh, rules: AxisRules, *logical: str | None):

@@ -56,6 +56,20 @@
 // kernel then writes NaN to the call's outputs and sets the device error
 // word, which the wrapper reads on request (`flash_decode.take_error`) and
 // chip_smoke.py checks after its decode runs.
+//
+// A shard's mergeable partial. Where a cache's sequence is cut into shards
+// (the reference's `decode_attend_seqsharded`, src/repro/models/attention.py,
+// whose `_partial_attend` this serves), the kernel runs over one shard's
+// slice: S positions from global position pos0, rows of a batch `stride_b`
+// positions apart (a view of the whole cache, no copy). The allowed range
+// is the global [max(0, t - window + 1), t - excl] (excl 1: the reference's
+// read-only cache, the new token folded in by the caller) intersected with
+// [pos0, pos0 + S); t is checked against the whole cache's length `total`.
+// On request the output is float32 and unrounded (`o32`) and the row's
+// natural log-sum-exp of the scores goes beside it (`lse`, [B, H]), so the
+// shards merge as `lse_merge` does: the split merge below already holds
+// M and L in base 2, lse = (M + log2 L) ln 2. A shard with no allowed
+// position reads no K or V and writes o = 0, lse = -inf.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +85,7 @@ constexpr int kStages = 3;  // stages of a warp's ring
 constexpr int kMaxHd = 256;
 constexpr int kMaxSmem = 128 * 1024;  // dynamic shared memory a launch may ask for
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 struct Vec;  // 16 bytes of T, widened to float
@@ -165,8 +180,10 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ vc, const int* __restrict__ t_dev,
                         float* __restrict__ part_m, float* __restrict__ part_l,
                         float* __restrict__ part_acc, unsigned* __restrict__ counters,
-                        int* __restrict__ error, T* __restrict__ o, int S, int KV, int G, int hd,
-                        int window, int block_s, float c1, float c2, int cap) {
+                        int* __restrict__ error, T* __restrict__ o, float* __restrict__ o32,
+                        float* __restrict__ lse, int S, int stride_b, int pos0, int excl,
+                        int total, int KV, int G, int hd, int window, int block_s, float c1,
+                        float c2, int cap) {
   constexpr int N = Vec<T>::N;                            // elements per 16-byte chunk
   constexpr int C = (kMaxHd * sizeof(T) / 16 + 31) / 32;  // chunks per lane, at most
   extern __shared__ __align__(16) unsigned char smem[];
@@ -177,29 +194,38 @@ __global__ void __launch_bounds__(kThreads)
   const int n_splits = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = KV * G;
-  T* og = o + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * hd;
+  const size_t out_row = static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G;
+  T* og = o32 ? nullptr : o + out_row * hd;
+  float* og32 = o32 ? o32 + out_row * hd : nullptr;
 
   const int t = *t_dev;
-  if (t < 0 || t >= S) {  // every CTA sees the same t: none touches the counter
+  if (t < 0 || t >= total) {  // every CTA sees the same t: none touches the counter
     if (sp == 0) {
-      for (int i = tid; i < G * hd; i += kThreads) store_out(og + i, __int_as_float(0x7fc00000));
+      const float nan = __int_as_float(0x7fc00000);
+      for (int i = tid; i < G * hd; i += kThreads) {
+        if (og32) og32[i] = nan; else store_out(og + i, nan);
+      }
+      if (lse && tid < G) lse[out_row + tid] = nan;
       if (tid == 0) atomicOr(error, 1);
     }
     return;
   }
-  const int lo = window > 0 ? max(0, t - window + 1) : 0;
-  const int blk0 = lo / block_s;
-  const int n_active = t / block_s - blk0 + 1;  // splits holding an allowed position
+  // the allowed range in the slice's own positions, [lo, hi]
+  const int lo = max(window > 0 ? max(0, t - window + 1) : 0, pos0) - pos0;
+  const int hi = min(t - excl, pos0 + S - 1) - pos0;
+  const bool empty = hi < lo;  // no allowed position: no split reads anything
+  const int blk0 = empty ? 0 : lo / block_s;
+  const int n_active = empty ? 0 : hi / block_s - blk0 + 1;  // splits holding an allowed position
   const int start = max((blk0 + sp) * block_s, lo);
-  const int n = min((blk0 + sp + 1) * block_s, t + 1) - start;  // <= 0 past t
+  const int n = empty ? 0 : min((blk0 + sp + 1) * block_s, hi + 1) - start;  // <= 0 past hi
 
   const int row_bytes = hd * static_cast<int>(sizeof(T));
   const int chunks = row_bytes / 16;
   const size_t row_stride = static_cast<size_t>(KV) * row_bytes;  // bytes between positions
   const unsigned char* kg = reinterpret_cast<const unsigned char*>(kc) +
-                            (static_cast<size_t>(b) * S * KV + kvh) * row_bytes;
+                            (static_cast<size_t>(b) * stride_b * KV + kvh) * row_bytes;
   const unsigned char* vg = reinterpret_cast<const unsigned char*>(vc) +
-                            (static_cast<size_t>(b) * S * KV + kvh) * row_bytes;
+                            (static_cast<size_t>(b) * stride_b * KV + kvh) * row_bytes;
 
   if (n > 0) {
     // each lane's chunks of the G queries, widened, in registers
@@ -391,7 +417,10 @@ __global__ void __launch_bounds__(kThreads)
       d += __ldcg(part_l + (base + s) * G + g) * c;
     }
     d = warp_sum(d);
-    if (lane == 0) den[g] = fmaxf(d, 1e-30f);
+    if (lane == 0) {
+      den[g] = fmaxf(d, 1e-30f);
+      if (lse) lse[out_row + g] = n_active > 0 ? (mx + log2f(d)) * kLn2 : -INFINITY;
+    }
   }
   __syncthreads();
   // the outputs, 4 at a time, each a sum over the splits in split order
@@ -408,18 +437,26 @@ __global__ void __launch_bounds__(kThreads)
       num.z += a.z * c;
       num.w += a.w * c;
     }
-    store_out(og + 4 * i, num.x / den[g]);
-    store_out(og + 4 * i + 1, num.y / den[g]);
-    store_out(og + 4 * i + 2, num.z / den[g]);
-    store_out(og + 4 * i + 3, num.w / den[g]);
+    if (og32) {
+      og32[4 * i] = num.x / den[g];
+      og32[4 * i + 1] = num.y / den[g];
+      og32[4 * i + 2] = num.z / den[g];
+      og32[4 * i + 3] = num.w / den[g];
+    } else {
+      store_out(og + 4 * i, num.x / den[g]);
+      store_out(og + 4 * i + 1, num.y / den[g]);
+      store_out(og + 4 * i + 2, num.z / den[g]);
+      store_out(og + 4 * i + 3, num.w / den[g]);
+    }
   }
 }
 
 template <typename T, int GM>
 int launch(const void* q, const void* kc, const void* vc, const int* t, void* part_m,
-           void* part_l, void* part_acc, unsigned* counters, int* error, void* o, int B, int S,
-           int KV, int G, int hd, int window, int block_s, int n_splits, float c1, float c2,
-           int cap, int smem, cudaStream_t stream) {
+           void* part_l, void* part_acc, unsigned* counters, int* error, void* o, float* o32,
+           float* lse, int B, int S, int stride_b, int pos0, int excl, int total, int KV, int G,
+           int hd, int window, int block_s, int n_splits, float c1, float c2, int cap, int smem,
+           cudaStream_t stream) {
   // once per instantiation: a permission (the wrapper's smem_bytes never
   // passes it), not an allocation (the launch asks for `smem`)
   static const cudaError_t e = cudaFuncSetAttribute(
@@ -428,18 +465,21 @@ int launch(const void* q, const void* kc, const void* vc, const int* t, void* pa
   flash_decode_kernel<T, GM><<<dim3(n_splits, KV, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), t,
       static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
-      counters, error, static_cast<T*>(o), S, KV, G, hd, window, block_s, c1, c2, cap);
+      counters, error, static_cast<T*>(o), o32, lse, S, stride_b, pos0, excl, total, KV, G, hd,
+      window, block_s, c1, c2, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_g(const void* q, const void* kc, const void* vc, const int* t, void* part_m,
-             void* part_l, void* part_acc, unsigned* counters, int* error, void* o, int B,
-             int S, int KV, int G, int hd, int window, int block_s, int n_splits, float c1,
-             float c2, int cap, int smem, cudaStream_t stream) {
-#define REPRO_DECODE_LAUNCH(GM)                                                                 \
-  return launch<T, GM>(q, kc, vc, t, part_m, part_l, part_acc, counters, error, o, B, S, KV, G, \
-                       hd, window, block_s, n_splits, c1, c2, cap, smem, stream)
+             void* part_l, void* part_acc, unsigned* counters, int* error, void* o, float* o32,
+             float* lse, int B, int S, int stride_b, int pos0, int excl, int total, int KV, int G,
+             int hd, int window, int block_s, int n_splits, float c1, float c2, int cap, int smem,
+             cudaStream_t stream) {
+#define REPRO_DECODE_LAUNCH(GM)                                                               \
+  return launch<T, GM>(q, kc, vc, t, part_m, part_l, part_acc, counters, error, o, o32, lse, \
+                       B, S, stride_b, pos0, excl, total, KV, G, hd, window, block_s,        \
+                       n_splits, c1, c2, cap, smem, stream)
   if (G <= 1) REPRO_DECODE_LAUNCH(1);
   if (G <= 2) REPRO_DECODE_LAUNCH(2);
   if (G <= 4) REPRO_DECODE_LAUNCH(4);
@@ -457,25 +497,33 @@ int launch_g(const void* q, const void* kc, const void* vc, const int* t, void* 
 // for acc) and a zeroed counter per (b, kv), all for this call alone, and
 // raises when this is not cudaSuccess. cap <= 0 means no soft
 // cap (scores s * c1, c1 = scale * log2 e), else tanh(s * c1) * c2 with
-// c1 = scale / cap, c2 = cap * log2 e; window <= 0 means no window.
+// c1 = scale / cap, c2 = cap * log2 e; window <= 0 means no window. The
+// cache holds S positions from global position pos0, a batch row every
+// stride_b positions; positions up to t - excl are allowed, and t must lie
+// in [0, total). o32 and lse, when not null, take a float32 output
+// [B, H, hd] (o is then not written) and the rows' log-sum-exp [B, H].
 extern "C" int flash_decode_launch(const void* q, const void* kc, const void* vc, const void* t,
                                    void* part_m, void* part_l, void* part_acc, void* counters,
-                                   void* error, void* o, int B, int S, int KV, int G, int hd,
-                                   int window, int block_s, int n_splits, float scale, float cap,
-                                   int bf16, int smem, void* stream) {
+                                   void* error, void* o, void* o32, void* lse, int B, int S,
+                                   int stride_b, int pos0, int excl, int total, int KV, int G,
+                                   int hd, int window, int block_s, int n_splits, float scale,
+                                   float cap, int bf16, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float c1 = cap > 0.f ? scale / cap : scale * kLog2e;
   const float c2 = cap > 0.f ? cap * kLog2e : 0.f;
   const int* tp = static_cast<const int*>(t);
   unsigned* cnt = static_cast<unsigned*>(counters);
   int* err = static_cast<int*>(error);
+  float* o32f = static_cast<float*>(o32);
+  float* lsef = static_cast<float*>(lse);
   if (bf16) {
-    return launch_g<__nv_bfloat16>(q, kc, vc, tp, part_m, part_l, part_acc, cnt, err, o, B, S,
-                                   KV, G, hd, window, block_s, n_splits, c1, c2, cap > 0.f, smem,
-                                   s);
+    return launch_g<__nv_bfloat16>(q, kc, vc, tp, part_m, part_l, part_acc, cnt, err, o, o32f,
+                                   lsef, B, S, stride_b, pos0, excl, total, KV, G, hd, window,
+                                   block_s, n_splits, c1, c2, cap > 0.f, smem, s);
   }
-  return launch_g<float>(q, kc, vc, tp, part_m, part_l, part_acc, cnt, err, o, B, S, KV, G, hd,
-                         window, block_s, n_splits, c1, c2, cap > 0.f, smem, s);
+  return launch_g<float>(q, kc, vc, tp, part_m, part_l, part_acc, cnt, err, o, o32f, lsef, B, S,
+                         stride_b, pos0, excl, total, KV, G, hd, window, block_s, n_splits, c1,
+                         c2, cap > 0.f, smem, s);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

@@ -18,6 +18,16 @@ SMEM: its launch shape (:func:`split_plan`) depends on the cache length,
 the window and the SM count, never on ``t``, so a call does not sync with
 the host and can be captured in a CUDA graph. The cache length ``S`` need
 not be a multiple of anything: positions past ``t`` are never read.
+
+A shard's mergeable partial: the cache may be one shard's slice of a
+sequence-sharded cache (a view, any batch stride), whose first slot is the
+global position ``pos0``; ``include_t=False`` stops the allowed range at
+``t - 1`` (the reference's read-only cache, the new token folded in by the
+caller), and ``lse=True`` returns ``(o, lse)``: the output in float32,
+unrounded, and each row's natural log-sum-exp ``[B, H]`` float32, which
+`repro_torch.models.attention.lse_combine` merges across shards. A shard
+with no allowed position gives ``o = 0`` and ``lse = -inf``. ``t`` must lie
+in the whole cache, ``[0, cache_len)``.
 """
 
 from __future__ import annotations
@@ -43,42 +53,65 @@ _ERRORS: dict[torch.device, torch.Tensor] = {}
 _SMS: dict[torch.device, int] = {}
 
 
-def allowed_range(t: int, window: int | None) -> tuple[int, int]:
-    """``[lo, t]``: the positions a token at ``t`` attends to."""
+def allowed_range(t: int, window: int | None, *, pos0: int = 0, s: int | None = None,
+                  include_t: bool = True) -> tuple[int, int]:
+    """``[lo, hi]``: the positions a token at ``t`` attends to, in the
+    slice's own positions (the slice holds ``s`` positions from global
+    ``pos0``; ``s=None``: the whole cache from 0). ``hi < lo`` when the
+    slice holds none."""
     lo = max(0, t - window + 1) if window is not None else 0
-    return lo, t
+    hi = t if include_t else t - 1
+    lo = max(lo, pos0) - pos0
+    hi = (hi if s is None else min(hi, pos0 + s - 1)) - pos0
+    return lo, hi
 
 
 def flash_decode_ref(q, k_cache, v_cache, t: int, *, window: int | None = None,
-                     cap: float | None = None) -> torch.Tensor:
-    """Plain PyTorch one-token attention over the cache, positions <= t."""
+                     cap: float | None = None, pos0: int = 0, include_t: bool = True,
+                     lse: bool = False):
+    """Plain PyTorch one-token attention over the cache's allowed positions
+    (``<= t``, or ``<= t - 1`` without ``include_t``, global positions from
+    ``pos0``). With ``lse``: ``(o float32 [B,H,hd], lse float32 [B,H])``,
+    ``o = 0`` and ``lse = -inf`` where the slice holds no allowed position."""
     b, h, hd = q.shape
     kv = k_cache.shape[2]
     g = h // kv
-    lo, hi = allowed_range(int(t), window)
+    lo, hi = allowed_range(int(t), window, pos0=pos0, s=k_cache.shape[1], include_t=include_t)
+    if hi < lo:
+        if not lse:
+            raise ValueError(f"no allowed position at t={t} in a slice from {pos0}")
+        return (torch.zeros((b, h, hd), dtype=torch.float32, device=q.device),
+                torch.full((b, h), -torch.inf, dtype=torch.float32, device=q.device))
     kc = k_cache[:, lo : hi + 1].float()
     vc = v_cache[:, lo : hi + 1].float()
     sc = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(b, kv, g, hd), kc) * hd ** -0.5
     if cap is not None:
         sc = cap * torch.tanh(sc / cap)
     p = torch.softmax(sc, dim=-1).to(v_cache.dtype).float()
-    o = torch.einsum("bkgs,bskd->bkgd", p, vc)
-    return o.reshape(b, h, hd).to(q.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", p, vc).reshape(b, h, hd)
+    if lse:
+        return o, torch.logsumexp(sc, dim=-1).reshape(b, h)
+    return o.to(q.dtype)
 
 
-def cost(q, k_cache, v_cache, t: int | None, *, window: int | None = None) -> dict:
+def cost(q, k_cache, v_cache, t: int | None, *, window: int | None = None, pos0: int = 0,
+         cache_len: int | None = None, include_t: bool = True, lse: bool = False) -> dict:
     """The least work of one call (PERF.md's Bound column): the query read
-    and the output written once, K and V of the attended positions read
-    once; ``4 hd`` operations a (query head, position) pair. ``t`` on the
-    device cannot be read without a sync (and not at all on ``meta``): then
-    the call is counted at the cache's last position, ``t = S - 1``."""
+    and the output written once (float32 and the log-sum-exp with ``lse``),
+    K and V of the slice's allowed positions read once; ``4 hd`` operations
+    a (query head, position) pair. ``t`` on the device cannot be read
+    without a sync (and not at all on ``meta``): then the call is counted at
+    the whole cache's last position, ``t = cache_len - 1``."""
     b, h, hd = q.shape
-    kv = k_cache.shape[2]
-    lo, hi = allowed_range(k_cache.shape[1] - 1 if t is None else int(t), window)
-    n_pos = hi - lo + 1
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    if t is None:
+        t = (pos0 + s if cache_len is None else cache_len) - 1
+    lo, hi = allowed_range(int(t), window, pos0=pos0, s=s, include_t=include_t)
+    n_pos = max(hi - lo + 1, 0)
     cls = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    out_bytes = 4 * (q.numel() + b * h) if lse else q.element_size() * q.numel()
     return {"flops": {cls: 4 * b * h * hd * n_pos},
-            "bytes": q.element_size() * (2 * q.numel() + 2 * b * n_pos * kv * hd)}
+            "bytes": q.element_size() * (q.numel() + 2 * b * n_pos * kv * hd) + out_bytes}
 
 
 def split_plan(s: int, window: int | None, pairs: int, n_sm: int, max_block: int
@@ -104,9 +137,9 @@ def split_plan(s: int, window: int | None, pairs: int, n_sm: int, max_block: int
 def split_ranges(t: int, window: int | None, block_s: int, n_splits: int) -> list[tuple[int, int]]:
     """The ``[start, end)`` positions each split of a launch takes at ``t``
     (the kernel's arithmetic; empty ranges do no work)."""
-    lo, _ = allowed_range(t, window)
+    lo, hi = allowed_range(t, window)
     blk0 = lo // block_s
-    return [(max((blk0 + i) * block_s, lo), min((blk0 + i + 1) * block_s, t + 1))
+    return [(max((blk0 + i) * block_s, lo), min((blk0 + i + 1) * block_s, hi + 1))
             for i in range(n_splits)]
 
 
@@ -146,7 +179,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     if not getattr(lib, "_repro_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_decode_launch.argtypes = [p] * 10 + [i] * 8 + [f, f, i, i, p]
+        lib.flash_decode_launch.argtypes = [p] * 12 + [i] * 12 + [f, f, i, i, p]
         lib.flash_decode_launch.restype = i
         lib.flash_decode_error_string.argtypes = [i]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -187,42 +220,74 @@ def sm_count(dev) -> int:
     return _SMS[dev]
 
 
+def _positions_view(name: str, x: torch.Tensor) -> int:
+    """The batch stride, in positions, of a cache ``[B, S, KV, hd]`` whose
+    rows are contiguous ``[S, KV, hd]`` blocks (a whole cache, or a view of
+    a slice of its positions); raises for any other layout."""
+    b, s, kv, hd = x.shape
+    if x.stride(3) != 1 or x.stride(2) != hd or x.stride(1) != kv * hd:
+        raise ValueError(f"flash decode kernel: {name} must hold each position's [KV, hd] "
+                         f"rows contiguously, got strides {x.stride()}")
+    if b > 1 and (x.stride(0) % (kv * hd) or x.stride(0) < s * kv * hd):
+        raise ValueError(f"flash decode kernel: {name}'s batch stride {x.stride(0)} is not a "
+                         f"whole number of positions past its {s}")
+    return x.stride(0) // (kv * hd) if b > 1 else s
+
+
 def flash_decode_cuda(q, k_cache, v_cache, t, *, window: int | None, cap: float | None,
-                      block_s: int) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous CUDA tensors of one dtype
-    (checked by the caller); ``t`` is a 0-d int32 tensor on the same card.
-    No host sync. The partials and the (b, kv) counters that find each
-    pair's merging CTA are allocated for this call on its stream (inside a
-    CUDA graph capture, from the graph's pool), so calls on two streams or
-    in two graphs never share them. Raises on any build or launch error, and
-    on sizes the kernel cannot take."""
+                      block_s: int, pos0: int = 0, cache_len: int | None = None,
+                      include_t: bool = True, lse: bool = False):
+    """Launch the CUDA kernel on CUDA tensors of one dtype (checked by the
+    caller): ``q`` contiguous, the caches contiguous or views of a slice of
+    positions of one cache (the same strides); ``t`` is a 0-d int32 tensor
+    on the same card. No host sync. The partials and the (b, kv) counters
+    that find each pair's merging CTA are allocated for this call on its
+    stream (inside a CUDA graph capture, from the graph's pool), so calls on
+    two streams or in two graphs never share them. Returns the output, or
+    ``(o float32, lse float32)`` with ``lse``. Raises on any build or launch
+    error, and on sizes the kernel cannot take."""
     b, h, hd = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     check_geometry(q.dtype, h, kv, hd, block_s)
+    if not q.is_contiguous():
+        raise ValueError("flash decode kernel: q must be contiguous")
+    stride_b = _positions_view("k_cache", k_cache)
+    if v_cache.stride() != k_cache.stride():
+        raise ValueError("flash decode kernel: k_cache and v_cache must share their strides")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash decode kernel: {name} must start 16-byte aligned")
     if t.dtype != torch.int32 or t.numel() != 1 or t.device != q.device:
         raise ValueError(f"flash decode kernel: t must be one int32 on {q.device}")
+    total = pos0 + s if cache_len is None else cache_len
+    if pos0 < 0 or pos0 + s > total:
+        raise ValueError(f"flash decode kernel: a slice of {s} from {pos0} outside a cache of "
+                         f"{total}")
     dev = q.device
     block, n_splits = split_plan(s, window, b * kv, sm_count(dev), block_s)
     part_m = torch.empty((b * kv, n_splits, g), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b * kv, n_splits, g, hd), dtype=torch.float32, device=dev)
     counters = torch.zeros(b * kv, dtype=torch.int32, device=dev)
-    out = torch.empty_like(q)
+    if lse:
+        out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+        row_lse = torch.empty((b, h), dtype=torch.float32, device=dev)
+        o_ptr, o32_ptr, lse_ptr = None, out.data_ptr(), row_lse.data_ptr()
+    else:
+        out = torch.empty_like(q)
+        o_ptr, o32_ptr, lse_ptr = out.data_ptr(), None, None
     lib = _lib()
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     rc = lib.flash_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), t.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
-        _error_word(dev).data_ptr(), out.data_ptr(), b, s, kv, g, hd,
-        0 if window is None else int(window), block, n_splits, hd ** -0.5,
-        0.0 if cap is None else float(cap), int(q.dtype == torch.bfloat16),
+        _error_word(dev).data_ptr(), o_ptr, o32_ptr, lse_ptr, b, s, stride_b, pos0,
+        int(not include_t), total, kv, g, hd, 0 if window is None else int(window), block,
+        n_splits, hd ** -0.5, 0.0 if cap is None else float(cap), int(q.dtype == torch.bfloat16),
         smem_bytes(g, hd, q.dtype, n_splits), stream,
     )
     if rc != 0:
         msg = lib.flash_decode_error_string(rc).decode()
         raise RuntimeError(f"flash_decode launch failed: CUDA error {rc} ({msg})")
-    return out
+    return (out, row_lse) if lse else out

@@ -63,7 +63,10 @@ def _launch(name: str, fn, *args, **kwargs):
     return out
 
 
-def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
+def _check_cuda(name: str, tensors: dict, dtypes: dict, views: tuple = ()) -> torch.device:
+    """One device for every tensor, each of its dtype and contiguous (the
+    arguments named in ``views`` may be views; their kernel checks their
+    strides)."""
     dev = None
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -74,7 +77,7 @@ def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
             raise ValueError(f"{name}: {arg} on {t.device}, expected {dev}")
         if t.dtype != dtypes[arg]:
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtypes[arg]}")
-        if not t.is_contiguous():
+        if arg not in views and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev
 
@@ -166,12 +169,12 @@ def lexical_scan_topk(
                           lambda: _lexical.cost(*args, k=k, pack_spec=pack_spec), run)
 
 
-def _same_dtype(name: str, tensors: dict) -> torch.device:
+def _same_dtype(name: str, tensors: dict, views: tuple = ()) -> torch.device:
     first = next(iter(tensors.values()))
     dtypes = {arg: first.dtype for arg in tensors}
     if first.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {first.dtype} (float32 or bfloat16 expected)")
-    return _check_cuda(name, tensors, dtypes)
+    return _check_cuda(name, tensors, dtypes, views)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -247,7 +250,8 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int | None = 
 
 
 def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
-                 cap: float | None = None, block_s: int | None = None):
+                 cap: float | None = None, block_s: int | None = None, pos0: int = 0,
+                 cache_len: int | None = None, include_t: bool = True, lse: bool = False):
     """Split-KV single-token decode. ``q [B,H,hd]``, caches ``[B,S,KV,hd]``
     of one dtype -> ``[B,H,hd]``, attending to positions ``<= t``.
 
@@ -255,23 +259,45 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
     CUDA ``t`` is read by the kernel itself (an int64 one is cast on the
     card first): nothing syncs with the host, the launch shape does not
     depend on ``t``, and the call can be captured in a CUDA graph; a ``t``
-    outside ``[0, S)`` then gives NaN outputs and sets the error word that
-    `flash_decode.take_error` reads. A host ``t`` (or a CPU tensor) is
-    checked here, ``0 <= t < S``, and on the card copied to the device once
-    per call. A ``meta`` ``t`` goes with ``meta`` caches. ``block_s=None``
-    takes the active tuning's ``decode_block_s`` (512 when untuned), the
-    most positions a split of the kernel takes (`flash_decode.split_plan`
-    picks fewer to fill the card). ``S`` need not be a multiple of
-    ``block_s``: positions past ``t`` are never read.
+    outside ``[0, cache_len)`` then gives NaN outputs and sets the error
+    word that `flash_decode.take_error` reads. A host ``t`` (or a CPU
+    tensor) is checked here, ``0 <= t < cache_len``, and on the card copied
+    to the device once per call. A ``meta`` ``t`` goes with ``meta`` caches.
+    ``block_s=None`` takes the active tuning's ``decode_block_s`` (512 when
+    untuned), the most positions a split of the kernel takes
+    (`flash_decode.split_plan` picks fewer to fill the card). ``S`` need not
+    be a multiple of ``block_s``: positions past ``t`` are never read.
+
+    One shard of a sequence-sharded cache: the caches may be views of a
+    slice of positions (each position's ``[KV, hd]`` contiguous) whose first
+    slot is the global position ``pos0`` of a cache of ``cache_len``
+    positions (default ``pos0 + S``); ``include_t=False`` allows positions
+    up to ``t - 1`` only; ``lse=True`` returns the mergeable partial ``(o
+    float32 [B,H,hd], lse float32 [B,H])`` (`flash_decode` module
+    docstring), ``o = 0`` and ``lse = -inf`` where the slice holds no
+    allowed position.
     """
     if block_s is None:
         block_s = tune_config.active().config.decode_block_s
-    dev = _same_dtype("flash_decode", {"q": q, "k_cache": k_cache, "v_cache": v_cache})
+    dev = _same_dtype("flash_decode", {"q": q, "k_cache": k_cache, "v_cache": v_cache},
+                      views=("k_cache", "v_cache"))
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or q.shape[0] != k_cache.shape[0] or q.shape[2] != k_cache.shape[3] \
             or q.shape[1] % k_cache.shape[2]:
         raise ValueError(f"flash_decode: q [B,H,hd] and caches [B,S,KV,hd] with KV dividing "
                          f"H expected, got {tuple(q.shape)}, {tuple(k_cache.shape)}")
+    total = pos0 + k_cache.shape[1] if cache_len is None else cache_len
+    if pos0 < 0 or pos0 + k_cache.shape[1] > total:
+        raise ValueError(f"flash_decode: a slice of {k_cache.shape[1]} positions from {pos0} "
+                         f"outside a cache of {total}")
+    shard = {"pos0": pos0, "include_t": include_t, "lse": lse}
+
+    def meta_out():
+        if lse:
+            return (torch.empty(q.shape, dtype=torch.float32, device=dev),
+                    torch.empty(q.shape[:2], dtype=torch.float32, device=dev))
+        return torch.empty_like(q)
+
     if isinstance(t, torch.Tensor):
         if t.numel() != 1 or t.dtype.is_floating_point or t.dtype.is_complex \
                 or t.dtype == torch.bool:
@@ -279,29 +305,31 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
                             f"{tuple(t.shape)}")
         if dev.type in ("cuda", "meta") and t.device == dev:
             if dev.type == "meta":
-                run = lambda: torch.empty_like(q)  # noqa: E731
+                run = meta_out
             else:
                 run = lambda: _launch(  # noqa: E731
                     "flash_decode", _decode.flash_decode_cuda, q, k_cache, v_cache,
                     t.reshape(()).to(torch.int32),  # no copy for an int32 t
-                    window=window, cap=cap, block_s=block_s)
+                    window=window, cap=cap, block_s=block_s, cache_len=total, **shard)
             return counting.kernel(
                 "flash_decode",
-                lambda: _decode.cost(q, k_cache, v_cache, None, window=window), run)
+                lambda: _decode.cost(q, k_cache, v_cache, None, window=window, cache_len=total,
+                                     **shard), run)
     t = int(t)
-    if not 0 <= t < k_cache.shape[1]:
-        raise ValueError(f"flash_decode: position t={t} outside a cache of {k_cache.shape[1]}")
+    if not 0 <= t < total:
+        raise ValueError(f"flash_decode: position t={t} outside a cache of {total}")
     if dev.type == "cpu":
         run = lambda: _decode.flash_decode_ref(q, k_cache, v_cache, t,  # noqa: E731
-                                               window=window, cap=cap)
+                                               window=window, cap=cap, **shard)
     elif dev.type == "meta":
-        run = lambda: torch.empty_like(q)  # noqa: E731
+        run = meta_out
     elif dev.type == "cuda":
         run = lambda: _launch(  # noqa: E731
             "flash_decode", _decode.flash_decode_cuda, q, k_cache, v_cache,
             torch.tensor(t, dtype=torch.int32, device=dev), window=window, cap=cap,
-            block_s=block_s)
+            block_s=block_s, cache_len=total, **shard)
     else:
         raise ValueError(f"flash_decode: no kernel for device {dev}")
     return counting.kernel("flash_decode",
-                          lambda: _decode.cost(q, k_cache, v_cache, t, window=window), run)
+                          lambda: _decode.cost(q, k_cache, v_cache, t, window=window,
+                                               cache_len=total, **shard), run)

@@ -13,11 +13,11 @@ the port. The specs are tuples of axis groups (`AxisRules.spec`);
 ``donate`` names the arguments the reference donates to its jitted step
 (the port's training step updates parameters and moments in place).
 
-Cells the port cannot build on a mesh larger than one shard yet — LM
-training with more than one shard (the loss,
-`models.transformer.make_loss_fn`) and a decode whose cache would be
-sequence-sharded (`models.transformer.make_serve_step`) — raise
-``NotImplementedError`` naming ROADMAP queue 1 item 3 when built.
+Every cell builds on every mesh: on a production mesh the LM training
+cells run the vocabulary- and data-parallel loss
+(`models.transformer.make_loss_fn`) and the decode cells the
+sequence-sharded cache (`models.transformer.make_serve_step`), each shard's
+part in turn.
 """
 
 from __future__ import annotations

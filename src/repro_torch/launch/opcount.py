@@ -176,12 +176,14 @@ class OpCounter(TorchDispatchMode):
 
     @contextlib.contextmanager
     def repeat(self, n: int):
-        """Count what runs inside ``n`` times (`obs.counting.each_shard`)."""
+        """Count what runs inside ``n`` times (`obs.counting.each_shard`;
+        0: not at all)."""
+        scale = self._scale
         self._scale *= n
         try:
             yield
         finally:
-            self._scale //= n
+            self._scale = scale
 
     # -- live bytes ---------------------------------------------------------
 

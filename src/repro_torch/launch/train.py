@@ -18,9 +18,16 @@ The reference's contract:
   {topk,sign}``, `repro_torch.optim.compress`).
 
 It trains any LM arch (the reduced config by default; ``--full`` takes the
-published one) and the recsys archs on one ``dp`` shard and one ``tp``
-shard, the reference's ``(1, 1)`` default (a larger mesh waits for the
-multi-shard slice, ROADMAP queue 1 item 3). A step reads the host once:
+published one) and the recsys archs on any mesh (``mesh=``; the reference's
+``(1, 1)`` by default). On a larger mesh the loader cuts each batch into
+the ``dp`` shards' rows on their devices; the step gathers them onto the
+first shard's device, where the forward runs, and the LM loss runs each
+``dp`` and ``tp`` shard's part (`models.transformer.make_loss_fn`).
+``--grad-compress`` follows the reference's layout: its compressor's
+``shard_map`` takes the gradient and the residual replicated, so every
+``dp`` shard compresses the same global gradient with the same residual,
+and their mean is that one part: the port compresses it once, and ``ef``
+stays one tree in the checkpoint's layout. A step reads the host once:
 ``float(metrics["loss"])``. TF32 stays off (PyTorch's default), so float32
 runs on the card hold to the CPU's. `train` does not train the GNN (nor
 does the reference's): its steps are :func:`make_train_step` over
@@ -45,7 +52,7 @@ from repro_torch.configs.base import GNNConfig, RecsysConfig, TransformerConfig
 from repro_torch.data import synthetic
 from repro_torch.data.loader import ShardedBatchLoader
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.distributed.sharding import all_gather_parts, rules_for_mesh
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
@@ -193,6 +200,14 @@ def make_train_step(loss_fn, schedule, grad_compress: str | None = None,
     return train_step
 
 
+def gathered_batch(loader: ShardedBatchLoader, step: int) -> dict:
+    """Step ``step``'s batch: the ``dp`` shards' rows (`ShardedBatchLoader`)
+    joined in shard order on the first shard's device (an all-gather; no
+    copy for one shard)."""
+    shards = loader.shards(step)
+    return {k: all_gather_parts([sh[k] for sh in shards], 0) for k in shards[0]}
+
+
 def train(
     arch: str | TransformerConfig | RecsysConfig = "h2o-danube-1.8b",
     *,
@@ -221,10 +236,6 @@ def train(
     else:
         cfg = arch
     mesh = mesh or make_test_mesh(1, 1, device=device)
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"the driver trains on one dp and one tp shard, not a {mesh.shape} mesh: more "
-            "shards wait for the multi-shard slice of the port (ROADMAP queue 1 item 3)")
     device = mesh.devices.flat[0]
     rules = rules_for_mesh(mesh)
 
@@ -261,7 +272,7 @@ def train(
         for step in range(start_step, steps):
             if fail_at_step is not None and step == fail_at_step:
                 raise RuntimeError(f"injected failure at step {step}")
-            b = loader.get(step)
+            b = gathered_batch(loader, step)
             t0 = time.time()
             params, opt, ef, metrics = train_step(params, opt, ef, b)
             loss = float(metrics["loss"])

@@ -34,7 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import all_gather_parts, psum_parts
+from repro_torch.distributed.sharding import all_gather_parts, device_runs, psum_parts
 from repro_torch.models.common import activation_fn, matmul_f32
 from repro_torch.obs import counting
 
@@ -219,61 +219,70 @@ def make_moe_layer(
         b_loc = b if mode == "replicated" else b // n_dp
         s_loc = s // n_tp if mode == "seq" else s
 
-        def x_local(di, ti):  # the in_spec's block of x
+        def x_local(x, di, ti):  # the in_spec's block of x
             rows = slice(0, b) if mode == "replicated" else slice(di * b_loc, (di + 1) * b_loc)
             cols = slice(ti * s_loc, (ti + 1) * s_loc) if mode == "seq" else slice(0, s)
             return x[rows, cols].to(device(di, ti))
 
-        def weights(di, ti):  # the in_specs' blocks of the expert weights
+        def weights(w_gate, w_up, w_down, di, ti):  # the in_specs' blocks of the experts
             dev, ex = device(di, ti), slice(ti * e_loc, (ti + 1) * e_loc)
             if not fsdp_experts:
                 return w_gate[ex].to(dev), w_up[ex].to(dev), w_down[ex].to(dev)
-            fs = [slice(dj * f_loc, (dj + 1) * f_loc) for dj in range(n_dp)]
             if mode == "replicated":  # TP over d_ff: this dp shard's slice only
-                return (w_gate[ex, :, fs[di]].to(dev), w_up[ex, :, fs[di]].to(dev),
-                        w_down[ex, fs[di]].to(dev))
-            # ZeRO-3: gather the d_ff-sharded weights just in time
-            return (all_gather_parts([w_gate[ex, :, sl].to(dev) for sl in fs], 2),
-                    all_gather_parts([w_up[ex, :, sl].to(dev) for sl in fs], 2),
-                    all_gather_parts([w_down[ex, sl].to(dev) for sl in fs], 1))
+                fs = slice(di * f_loc, (di + 1) * f_loc)
+                return (w_gate[ex, :, fs].to(dev), w_up[ex, :, fs].to(dev),
+                        w_down[ex, fs].to(dev))
+            # ZeRO-3: gather the d_ff-sharded weights just in time (the dp
+            # shards on one device hold their slices side by side already)
+            fs = [slice(d0 * f_loc, d1 * f_loc)
+                  for _, d0, d1 in device_runs([device(dj, ti) for dj in range(n_dp)])]
+            return (all_gather_parts([w_gate[ex, :, sl].to(dev) for sl in fs], 2, n_dp),
+                    all_gather_parts([w_up[ex, :, sl].to(dev) for sl in fs], 2, n_dp),
+                    all_gather_parts([w_down[ex, sl].to(dev) for sl in fs], 1, n_dp))
 
-        def shard(flat: int):
+        def shard(flat: int, x, router_w, w_gate, w_up, w_down):
             di, ti = divmod(flat, n_tp)
             dev = device(di, ti)
             if mode == "seq":  # all-gather the sequence over tp
-                xl = all_gather_parts([x_local(di, tj).to(dev) for tj in range(n_tp)], 1)
+                rows = slice(di * b_loc, (di + 1) * b_loc)
+                xl = all_gather_parts(
+                    [x[rows, t0 * s_loc:t1 * s_loc].to(dev)
+                     for _, t0, t1 in device_runs([device(di, tj) for tj in range(n_tp)])],
+                    1, n_tp)
             else:
-                xl = x_local(di, ti)
+                xl = x_local(x, di, ti)
             bl, sl, _ = xl.shape
             y, a = moe_ffn_local(
-                xl.reshape(bl * sl, d), router_w.to(xl.device), *weights(di, ti),
-                n_experts=n_experts, top_k=top_k, capacity=capacity, e0=ti * e_loc,
-                activation=activation)
+                xl.reshape(bl * sl, d), router_w.to(xl.device),
+                *weights(w_gate, w_up, w_down, di, ti), n_experts=n_experts, top_k=top_k,
+                capacity=capacity, e0=ti * e_loc, activation=activation)
             return y.reshape(bl, sl, d), a
 
-        # every shard's body has the same shapes (an op counter on meta runs one)
-        args = (x, router_w, w_gate, w_up, w_down)
-        no_grad = not (torch.is_grad_enabled() and any(t.requires_grad for t in args))
-        outs = counting.each_shard(n_dp * n_tp, shard, meta=x.is_meta and no_grad)
-        partial = {divmod(i, n_tp): y for i, (y, _) in enumerate(outs)}
-        aux = {divmod(i, n_tp): a for i, (_, a) in enumerate(outs)}
+        # every shard's body has the same shapes (an op counter on meta runs
+        # one, forward and backward)
+        outs = counting.each_shard(n_dp * n_tp, shard, meta=x.is_meta,
+                                   inputs=(x, router_w, w_gate, w_up, w_down))
+        ys, aux = [y for y, _ in outs], [a for _, a in outs]  # flat (dp, tp) order
 
         if mode == "replicated":
-            dps = range(n_dp) if fsdp_experts else range(1)
-            y = psum_parts([partial[di, ti] for di in dps for ti in range(n_tp)])
-            return y, aux[0, 0]
-        if mode == "train":
-            y = all_gather_parts([psum_parts([partial[di, ti] for ti in range(n_tp)])
-                                  for di in range(n_dp)], 0)
-        else:  # seq: reduce-scatter the tp partials back along the sequence
-            blocks = []
-            for di in range(n_dp):
-                full = psum_parts([partial[di, ti] for ti in range(n_tp)])
-                blocks.append(all_gather_parts([full[:, ti * s_loc:(ti + 1) * s_loc]
-                                       for ti in range(n_tp)], 1))
-            y = all_gather_parts(blocks, 0)
-        home = partial[0, 0].device
-        aux_mean = psum_parts([aux[di, 0].to(home) for di in range(n_dp)]) / n_dp
+            y = psum_parts(ys[:(n_dp if fsdp_experts else 1) * n_tp])
+            return y, aux[0]
+
+        def rows(di: int, *ys):
+            """dp shard ``di``'s rows of the output: its tp partials summed
+            (seq: reduce-scattered back along the sequence, then gathered)."""
+            full = psum_parts(list(ys[di * n_tp:(di + 1) * n_tp]))
+            if mode == "train":
+                return full
+            return all_gather_parts(
+                [full[:, t0 * s_loc:t1 * s_loc]
+                 for _, t0, t1 in device_runs([device(di, ti) for ti in range(n_tp)])], 1, n_tp)
+
+        # every dp shard's rows have the same shapes (on meta: counted once)
+        y = all_gather_parts(counting.each_shard(n_dp, rows, meta=x.is_meta, inputs=tuple(ys)),
+                             0)
+        home = ys[0].device
+        aux_mean = psum_parts([aux[di * n_tp].to(home) for di in range(n_dp)]) / n_dp
         return y, aux_mean
 
     return layer

@@ -16,31 +16,34 @@ What differs from the reference, and why:
 * the layers are a Python loop over the stacked weights (PyTorch runs
   eagerly; there is no scan to compile), each leaf unbound once a call so
   its gradient is stacked once; the dense layers run on one device
-  (sharding constraints are the identity) and only the MoE layer runs over
-  the mesh; remat follows the config (``remat``, ``remat_policy``,
-  ``remat_chunk``) through ``torch.utils.checkpoint``, per layer, and per
-  chunk of layers around that when ``remat_chunk > 1``;
+  (sharding constraints are the identity), and the mesh's shards run one
+  after another on their devices where the reference runs a ``shard_map``:
+  the MoE layer, the loss (each ``dp`` shard's rows against each ``tp``
+  shard's block of the unembedding) and the decode attention over a
+  sequence-sharded cache; remat follows the config (``remat``,
+  ``remat_policy``, ``remat_chunk``) through ``torch.utils.checkpoint``,
+  per layer, and per chunk of layers around that when ``remat_chunk > 1``;
 * attention runs through the kernels: prefill and training call
   `ops.flash_attention_train` (the flash kernel's forward, with the
   gradient of the reference's ``chunked_attention`` recomputed block by
   block in its backward) with native GQA (no ``repeat``), the window
   passed only on a windowed layer, which is the reference's
-  ``in_window | ~window_active``; decode writes the new token's K/V into
-  the cache first, in place, then calls `ops.flash_decode` over the
-  positions ``<= t``; the reference keeps the cache read-only in its scan
-  and folds the new token in as a separate merge term — the same function
-  up to summation order, without a copy of the cache per step;
+  ``in_window | ~window_active``; a decode whose cache lies on one shard
+  writes the new token's K/V into the cache first, in place, then calls
+  `ops.flash_decode` over the positions ``<= t``; the reference keeps the
+  cache read-only in its scan and folds the new token in as a separate
+  merge term — the same function up to summation order, without a copy of
+  the cache per step; a cache whose sequence spans shards runs the
+  reference's order (`attention.decode_attend_seqsharded`: each shard's
+  partial over positions ``<= t - 1``, the log-sum-exp merge, the new
+  token folded in), then writes slot ``t`` in place after each layer's
+  attention;
 * gathers whose gradient is a scatter (the embedding, the MoE dispatch and
   combine) are ``F.embedding``, whose backward on the card sorts instead of
   adding atomically: a training step gives the same bits every run;
 * ``init_params`` draws from a ``torch.Generator``, so its numbers are not
   the reference's (`repro_torch.convert.params_from_numpy` carries the
-  reference's own parameters across for the parity tests);
-* the serve step attends over a KV cache on one device: a cache whose
-  sequence axes span several shards (the reference's
-  ``decode_attend_seqsharded``) is refused, and the loss runs on one ``dp``
-  shard and one ``tp`` shard (a larger mesh is refused): both name the
-  multi-shard slice, ROADMAP queue 1 item 3.
+  reference's own parameters across for the parity tests).
 """
 
 from __future__ import annotations
@@ -56,12 +59,16 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import TransformerConfig
-from repro_torch.distributed.sharding import AxisRules, Mesh
+from repro_torch.distributed.sharding import (
+    AxisRules, Mesh, device_runs, pmax_parts, psum_parts,
+)
 from repro_torch.kernels import ops
+from repro_torch.models import attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     activation_fn, apply_rope, init_dense, matmul_f32, rms_norm, rope_angles, softcap,
 )
+from repro_torch.obs import counting
 from repro_torch.tune import config as tune_config
 
 FSDP_EXPERT_BYTES = 2**33  # >8 GiB of expert weights -> ZeRO-3 them over dp
@@ -392,57 +399,101 @@ def forward(params: dict, tokens: torch.Tensor, ctx: ModelContext | TransformerC
     return apply_unembed(params, x, ctx.cfg), aux
 
 
-def _chunk_xent(x, unembed, labels, cap):
-    """One sequence chunk's summed cross-entropy: x [B,ck,D], labels [B,ck].
-    The shift is the row max without a gradient (the reference's
-    ``stop_gradient``: exact, the log-sum-exp does not depend on it); a
-    label outside the vocabulary adds only the log-sum-exp, as the
-    reference's ``where(in_range, ...)``."""
-    logits = softcap(matmul_f32(x, unembed), cap)
-    v = logits.shape[-1]
-    m = logits.detach().amax(dim=-1)
-    lse = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1)) + m
-    labels = labels.long()
-    in_range = (labels >= 0) & (labels < v)
-    lab = torch.gather(logits, -1, labels.clamp(0, v - 1)[..., None])[..., 0]
-    return torch.sum(lse - torch.where(in_range, lab, 0.0))
+def _chunk_xent(x, blocks, labels, cap, v_loc: int, n_tp: int):
+    """One sequence chunk's summed cross-entropy over the vocabulary cut
+    into ``n_tp`` blocks of ``v_loc``: x [B,ck,D] and labels [B,ck] on the
+    first block's device; ``blocks`` ``[(t0, w)]``, one for each run of
+    ``tp`` shards on one device (`sharding.device_runs`), ``w`` their
+    column blocks side by side from shard ``t0`` on, on that device. Per
+    run: float32 logits with the final soft cap and the row max without a
+    gradient (the reference's ``stop_gradient``: exact, the log-sum-exp
+    does not depend on the shift); then ``pmax`` of the maxima, ``psum`` of
+    the exponentials and ``psum`` of the label's logit from the block that
+    holds it, each an all-reduce among the ``n_tp`` shards; a label outside
+    the vocabulary adds only the log-sum-exp, as the reference's
+    ``where(in_range, ...)``. One run (every shard on one device) is the
+    one-shard computation."""
+    logits, labs = [], []
+    for t0, w in blocks:
+        lg = softcap(matmul_f32(x.to(w.device), w), cap)
+        width = lg.shape[-1]
+        lab = labels.to(w.device).long() - t0 * v_loc
+        in_range = (lab >= 0) & (lab < width)
+        picked = torch.gather(lg, -1, lab.clamp(0, width - 1)[..., None])[..., 0]
+        labs.append(torch.where(in_range, picked, 0.0))
+        logits.append(lg)
+    m_g = pmax_parts([lg.detach().amax(dim=-1) for lg in logits], group=n_tp)
+    se = psum_parts([torch.exp(lg - m_g.to(lg.device)[..., None]).sum(dim=-1) for lg in logits],
+                    group=n_tp)
+    lse = torch.log(se) + m_g
+    return torch.sum(lse - psum_parts(labs, group=n_tp))
 
 
 def make_loss_fn(ctx: ModelContext | TransformerConfig, aux_weight: float = 0.01,
                  chunk: int = 256):
-    """The reference's fused, chunked cross-entropy: ``loss_fn(params, batch
-    {"tokens", "labels"}) -> (loss + aux_weight * aux, {"loss", "aux"})``,
-    the mean over every token. The unembedding runs ``chunk`` positions at
-    a time (float32 logits, the final soft cap) and, under autograd, each
-    chunk's logits are recomputed in the backward, so no ``[B,S,V]`` float32
-    tensor lives (the reference's checkpointed scan). One ``dp`` shard and
-    one ``tp`` shard: a mesh with more (a data-parallel or vocab-parallel
-    loss) waits for the multi-shard slice (ROADMAP queue 1 item 3)."""
+    """The reference's fused, chunked, vocabulary-parallel cross-entropy:
+    ``loss_fn(params, batch {"tokens", "labels"}) -> (loss + aux_weight *
+    aux, {"loss", "aux"})``, the mean over every token.
+
+    The forward runs on the whole batch; the loss then runs as the
+    reference's ``shard_map``: each ``dp`` shard takes its rows, each
+    ``tp`` shard the ``unembed`` column block ``[ti V/tp, (ti+1) V/tp)``
+    (moved to the shard's device where that is another; the blocks of
+    shards on one device run as one product), ``chunk`` positions at a
+    time (:func:`_chunk_xent`), and the loss is the ``pmean`` over ``dp``
+    of each shard's mean. Under autograd each chunk's logits are
+    recomputed in the backward, so no ``[B,S,V]`` float32 tensor lives (the
+    reference's checkpointed scan). A context without a mesh is one shard.
+    A vocabulary that ``tp`` does not divide, or a batch that ``dp`` does
+    not, raises, as the reference's ``shard_map`` would. Under an op
+    counter on ``meta`` the ``dp`` shards' bodies (equal shapes) are
+    counted once each way and charged to every shard
+    (`obs.counting.each_shard`)."""
     ctx = _context(ctx)
     cfg = ctx.cfg
-    if ctx.mesh is not None and ctx.mesh.size > 1:
-        raise NotImplementedError(
-            f"the loss runs on one dp and one tp shard, not a {ctx.mesh.shape} mesh: a "
-            "sharded loss waits for the multi-shard slice of the port (ROADMAP queue 1 item 3)")
     cap = cfg.final_softcap
+    if ctx.mesh is None:
+        devs = [[None]]
+    else:
+        dp_axes, tp = ctx.rules.dp, ctx.rules.tp
+        n_dp = math.prod(ctx.mesh.shape[a] for a in dp_axes)
+        devs = [[ctx.mesh.shard(di * ctx.mesh.shape[tp] + ti, (*dp_axes, tp))[0]
+                 for ti in range(ctx.mesh.shape[tp])] for di in range(n_dp)]
+    n_dp, n_tp = len(devs), len(devs[0])
+    if cfg.vocab % n_tp:
+        raise ValueError(f"vocabulary {cfg.vocab} does not split over {n_tp} tp shards")
+    v_loc = cfg.vocab // n_tp
 
     def xent(x, unembed, labels):
         b, s, _ = x.shape
         ck = min(chunk, s)
         if s % ck:
             raise ValueError(f"sequence {s} not divisible by the loss chunk {ck}")
+        if b % n_dp:
+            raise ValueError(f"batch {b} does not split over {n_dp} dp shards")
+        b_loc = b // n_dp
         one = _chunk_xent
         if torch.is_grad_enabled():
             one = lambda *a: checkpoint(_chunk_xent, *a, use_reentrant=False)  # noqa: E731
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for a in range(0, s, ck):
-            total = total + one(x[:, a:a + ck], unembed, labels[:, a:a + ck], cap)
-        return total / (b * s)
+
+        def shard(di, x, unembed, labels):  # one dp shard's mean over its rows
+            home = devs[di][0] or x.device
+            rows = slice(di * b_loc, (di + 1) * b_loc)
+            xr, lr = x[rows].to(home), labels[rows].to(home)
+            blocks = [(t0, unembed[:, t0 * v_loc:t1 * v_loc].to(d or x.device))
+                      for d, t0, t1 in device_runs(devs[di])]
+            total = torch.zeros((), dtype=torch.float32, device=home)
+            for a in range(0, s, ck):
+                total = total + one(xr[:, a:a + ck], blocks, lr[:, a:a + ck], cap, v_loc, n_tp)
+            return total / (b_loc * s)
+
+        means = counting.each_shard(n_dp, shard, meta=x.is_meta, inputs=(x, unembed, labels))
+        return psum_parts(means) / n_dp
 
     def loss_fn(params, batch):
         x, aux = forward_hidden(params, batch["tokens"], ctx)
         loss = xent(x, params["unembed"], batch["labels"])
-        return loss + aux_weight * aux, {"loss": loss, "aux": aux}
+        return loss + aux_weight * aux.to(loss.device), {"loss": loss, "aux": aux}
 
     return loss_fn
 
@@ -493,23 +544,25 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
     position outside the cache, `flash_decode.take_error`). Any other
     tensor (one element, on another device) is read as a host int.
 
-    The cache lies on one device. Where the context's mesh would shard its
-    sequence (the reference's ``decode_layout``: over every axis at batch
-    1, over ``tp`` otherwise) across more than one shard, the reference
-    attends with ``decode_attend_seqsharded`` (partials per shard and a
-    log-sum-exp merge); that waits for the multi-shard slice of the port
-    (ROADMAP queue 1 item 3), and this raises.
+    Where the context's mesh shards the cache's sequence (the reference's
+    ``decode_layout``: over every axis at batch 1, over ``tp`` with the
+    batch over ``dp`` otherwise) across more than one shard, each layer
+    attends as the reference's ``decode_attend_seqsharded``
+    (`attention.decode_attend_seqsharded`: each shard's partial through the
+    decode kernel over its slice of the one cache, a view, at positions
+    ``<= t - 1``, the log-sum-exp merge, then the new token's own term), and
+    writes the new token's K/V at slot ``t`` after the layer's attention;
+    nothing in it reads ``t`` on the host either.
     """
     ctx = _context(ctx)
     cfg = ctx.cfg
+    attend = None
     if ctx.mesh is not None:
-        seq_axes, _ = decode_layout(ctx.rules, batch)
-        n_seq = math.prod(ctx.mesh.shape[a] for a in seq_axes)
-        if n_seq > 1:
-            raise NotImplementedError(
-                f"a KV cache sharded over {seq_axes} ({n_seq} shards) needs "
-                "decode_attend_seqsharded, which waits for the multi-shard slice of the port "
-                "(ROADMAP queue 1 item 3)")
+        seq_axes, batch_spec = decode_layout(ctx.rules, batch)
+        if math.prod(ctx.mesh.shape[a] for a in seq_axes) > 1:
+            attend = attention.decode_attend_seqsharded(
+                ctx.mesh, seq_axes=seq_axes, batch_axes=batch_spec, window=_window(cfg),
+                cap=cfg.attn_softcap)
     windows = _layer_windows(cfg)
     dt = _dtype(cfg)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -543,13 +596,16 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
             vn = (y @ lp["wv"]).reshape(b, kv, hd)
             q = apply_rope(q, cos, sin)[:, 0]
             kn = apply_rope(kn, cos, sin)[:, 0]
-            # the new token's K/V go into the cache first, in place: the
-            # kernel then reads positions <= t, and no step copies the cache
-            cache["k"][i].index_copy_(1, slot, kn[:, None].to(cache["k"].dtype))
-            cache["v"][i].index_copy_(1, slot, vn[:, None].to(cache["v"].dtype))
-            o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t_kern,
-                                 window=_window(cfg) if windowed else None,
-                                 cap=cfg.attn_softcap).to(dt)
+            if attend is None:
+                # the new token's K/V go into the cache first, in place: the
+                # kernel then reads positions <= t, and no step copies the cache
+                _write_slot(cache, i, slot, kn, vn)
+                o = ops.flash_decode(q, cache["k"][i], cache["v"][i], t_kern,
+                                     window=_window(cfg) if windowed else None,
+                                     cap=cfg.attn_softcap).to(dt)
+            else:  # the shards read positions < t; slot t is written after
+                o = attend(q, kn, vn, cache["k"][i], cache["v"][i], t_kern, windowed).to(dt)
+                _write_slot(cache, i, slot, kn, vn)
             x = x + (o.reshape(b, h * hd) @ lp["wo"]).to(dt)
             y2 = rms_norm(x, lp["ffn_norm"], one_plus=cfg.rms_one_plus)
             x = x + _ffn(y2, lp, ctx)
@@ -557,6 +613,13 @@ def make_serve_step(ctx: ModelContext | TransformerConfig, *, batch: int):
         return apply_unembed(params, x, cfg), cache
 
     return serve_step
+
+
+def _write_slot(cache: dict, i: int, slot: torch.Tensor, kn, vn) -> None:
+    """Layer ``i``'s K/V of the new token into the cache at ``slot`` (a
+    one-element device index), in place."""
+    cache["k"][i].index_copy_(1, slot, kn[:, None].to(cache["k"].dtype))
+    cache["v"][i].index_copy_(1, slot, vn[:, None].to(cache["v"].dtype))
 
 
 def make_prefill_step(ctx: ModelContext | TransformerConfig):

@@ -13,7 +13,10 @@ flat mesh order over ``axis_name``'s axes, and returns a list of what each
 shard holds afterwards (every shard the same mean, each its own residual).
 The mean adds the shards' parts left to right on each shard's device, then
 divides by their count. A single tree (not a list) is one shard, whose
-mean is its own part: the training driver runs one ``dp`` shard.
+mean is its own part: the training driver passes its one global gradient,
+as the reference's driver gives its compressor the gradient and the
+residual replicated over ``dp``, so that every shard compresses the same
+tree and their mean is that part.
 
 ``top_k`` of the magnitudes keeps the lower index first among equal
 magnitudes (``torch.topk`` promises no order for ties, so the kept set is

@@ -25,7 +25,10 @@ one CUDA stream a shard): `search_mesh` gives the one-shard scan's bytes
 whatever the caller's stream is still doing, with no host sync, and the
 sharded session the resident session's rows in the same bytes of memory;
 the reduced MoE LM on the card is within 1e-4 / 1e-5 of the CPU and its
-decode step makes no host sync. Training: the flash kernel under autograd
+decode step makes no host sync. The decode kernel's mergeable partial over
+each shard of a split cache holds to its plain version (an empty shard:
+``o = 0``, ``lse = -inf``), and the reduced LM's step over a
+sequence-sharded cache on the card holds to the CPU's with no host sync. Training: the flash kernel under autograd
 gives the CPU's gradients (float32 within 1e-4 / 1e-5, bfloat16 within
 3e-2), and two driver runs and a crash resumed from a checkpoint give the
 same bytes on the card. The dense session pads its corpus once (the
@@ -384,6 +387,93 @@ def test_cuda_flash_decode_device_t_matches_plain_version():
     bad = ops.flash_decode(q, kc, vc, torch.tensor(s, dtype=torch.int32, device=dev))
     assert torch.isnan(bad.float()).all()
     assert flash_decode.take_error(dev) == 1
+    assert flash_decode.take_error(dev) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_partials_match_plain_version_per_shard():
+    """A cache cut into 4 shards (each a view of its positions): every
+    shard's ``(o, lse)`` at positions ``<= t - 1`` against the plain
+    version (o within the reference's tolerances, lse within 1e-4 / 1e-5),
+    a shard with no allowed position ``o = 0`` and ``lse = -inf`` with no
+    NaN, and the shards merged by log-sum-exp the whole cache's partial."""
+    from repro_torch.models import attention
+
+    dev = _card()
+    b, s, kv, g, hd, n = 2, 1024, 4, 2, 256, 4
+    s_loc = s // n
+    for m, dtype in enumerate((torch.float32, torch.bfloat16)):
+        q = _rows(300 + m, (b, kv * g, hd), dtype, dev)
+        kc, vc = _rows(310 + m, (b, s, kv, hd), dtype, dev), _rows(320 + m, (b, s, kv, hd), dtype, dev)
+        tol = 3e-4 if dtype == torch.float32 else 3e-2
+        atol = 3e-5 if dtype == torch.float32 else 3e-2
+        for t, window, cap in ((0, None, None), (300, None, 50.0), (512, 100, 50.0),
+                               (1023, 200, None), (700, None, None)):
+            t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+            parts = []
+            for i in range(n):
+                cols = slice(i * s_loc, (i + 1) * s_loc)
+                before = ops.LAUNCHES["flash_decode"]
+                o, lse = ops.flash_decode(q, kc[:, cols], vc[:, cols], t_dev, window=window,
+                                          cap=cap, pos0=i * s_loc, cache_len=s,
+                                          include_t=False, lse=True)
+                assert ops.LAUNCHES["flash_decode"] == before + 1
+                want_o, want_lse = flash_decode.flash_decode_ref(
+                    q, kc[:, cols], vc[:, cols], t, window=window, cap=cap, pos0=i * s_loc,
+                    include_t=False, lse=True)
+                assert not torch.isnan(o).any() and not torch.isnan(lse).any()
+                lo, hi = flash_decode.allowed_range(t, window, pos0=i * s_loc, s=s_loc,
+                                                    include_t=False)
+                if hi < lo:
+                    assert torch.equal(o, torch.zeros_like(o)) and torch.isneginf(lse).all()
+                torch.testing.assert_close(o, want_o, rtol=tol, atol=atol, msg=str((t, i)))
+                torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-5, msg=str((t, i)))
+                parts.append(attention.kernel_partial(o, lse))
+            if t > 0:
+                whole, _ = flash_decode.flash_decode_ref(q, kc, vc, t, window=window, cap=cap,
+                                                         include_t=False, lse=True)
+                _, l_g, o_g = attention.lse_combine(*(torch.stack(x) for x in zip(*parts)))
+                torch.testing.assert_close(o_g / l_g[..., None], whole, rtol=tol, atol=atol)
+    assert flash_decode.take_error(dev) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sequence_sharded_serve_step_matches_the_cpu_without_host_sync():
+    """The reduced gemma2-2b on a (1, 4) mesh of the card (the cache's
+    sequence over 4 shards, each a view): logits within 1e-4 / 1e-5 of the
+    same step on a (1, 4) CPU mesh, and with ``t`` a device int32 no host
+    sync."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tfm
+
+    dev = _card()
+    cfg = reduced_config("gemma2-2b")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    steps, caches = {}, {}
+    for d in ("cpu", "cuda"):
+        mesh = make_test_mesh(1, 4, device=d)
+        steps[d] = tfm.make_serve_step(tfm.make_context(cfg, mesh, rules_for_mesh(mesh)), batch=2)
+        caches[d] = tfm.init_cache(cfg, 2, 32, device=d)
+    on_card = {k: (v.to(dev) if isinstance(v, torch.Tensor) else {n: w.to(dev) for n, w in
+                                                                   v.items()})
+               for k, v in params.items()}
+    tok = torch.ones(2, dtype=torch.int64)
+    t_dev = torch.zeros((), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    for t in range(20):
+        want, caches["cpu"] = steps["cpu"](params, caches["cpu"], tok, t)
+        tok_d = tok.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, caches["cuda"] = steps["cuda"](on_card, caches["cuda"], tok_d, t_dev)
+            t_dev.add_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5, msg=str(t))
+        tok = torch.argmax(want, dim=-1)
     assert flash_decode.take_error(dev) == 0
 
 

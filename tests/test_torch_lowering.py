@@ -381,8 +381,34 @@ def test_dryrun_of_the_reduced_configs_on_one_h100_is_ok_for_every_cell(tmp_path
 
 
 def test_cells_a_production_mesh_cannot_build_yet_name_the_multi_shard_slice():
+    """The cells that raised on a production mesh before the multi-shard
+    parts (LM training: the loss over dp and tp; decode: a sequence-sharded
+    cache) build on 16x16 and, at the reduced configs, count: no launch,
+    the loss's and the merge's all-reduces among 16 (tp) and 256 (every
+    axis at batch 1) shards recorded, and the long cache's decode kernels
+    charged only where a shard holds positions."""
     mesh = cells.meta_mesh("16x16")
     for arch, shape in (("gemma2-2b", "train_4k"), ("gemma2-2b", "decode_32k"),
                         ("gemma2-2b", "long_500k")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            cells.build_cell(arch, shape, mesh)
+        cells.build_cell(arch, shape, mesh)
+    reduced = dataclasses.replace(configs.reduced_config("gemma2-2b"), vocab=512)
+    before = dict(ops.LAUNCHES)
+    for shape, group in (("train_4k", 16), ("long_500k", 256)):
+        real = cells.get_config
+        cells.get_config = lambda a: reduced if a == "gemma2-2b" else real(a)
+        try:
+            cell = cells.build_cell("gemma2-2b", shape, mesh)
+        finally:
+            cells.get_config = real
+        with opcount.OpCounter(mesh.size) as c:
+            c.track(cell.abstract_inputs)
+            cell.fn(*cell.abstract_inputs)
+        res = c.result()
+        assert res["collective_group_sizes"]["all-reduce"] == group, shape
+        if shape == "long_500k":  # 256 shards a layer, the local layer's only in the last
+            line = res["kernels"]["flash_decode"]
+            assert line["calls"] == 256 * reduced.n_layers
+            window = reduced.sliding_window
+            positions = (524_288 - 1) + (window - 1)  # global < t, local t - window < p < t
+            assert line["flops"]["f32"] * mesh.size == 4 * reduced.n_heads * reduced.hd * positions
+    assert ops.LAUNCHES == before

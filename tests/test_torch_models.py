@@ -429,13 +429,24 @@ def test_moe_contexts_and_the_sequence_sharded_cache():
     assert tfm.make_context(cfg, mesh, rules).moe_layer is None
     assert tfm.make_context(configs.reduced_config("gemma2-2b"), mesh, rules,
                             tokens_per_shard=4).moe_layer is None
-    # a cache whose sequence would span shards waits for decode_attend_seqsharded
-    for shape, batch in (((1, 2), 2), ((2, 1), 1)):
-        with pytest.raises(NotImplementedError, match="decode_attend_seqsharded"):
-            tfm.make_serve_step(_port_ctx("qwen3-moe-30b-a3b", batch, shape=shape), batch=batch)
-    tfm.make_serve_step(_port_ctx("qwen3-moe-30b-a3b", 2, shape=(2, 1)), batch=2)
-    # the MoE layer over a 2-way tp mesh serves the 1x1 layer's prefill
+    # a cache whose sequence spans shards (over tp at batch 2, over every
+    # axis at batch 1) decodes as the 1x1 context's step does
     params = tfm.init_params(cfg, torch.Generator().manual_seed(7))
+    for shape, batch in (((1, 2), 2), ((2, 1), 1)):
+        mode = "train" if batch > 1 else "replicated"
+        sharded = tfm.make_serve_step(_port_ctx("qwen3-moe-30b-a3b", batch, mode, shape),
+                                      batch=batch)
+        one = tfm.make_serve_step(_port_ctx("qwen3-moe-30b-a3b", batch, mode), batch=batch)
+        g = torch.Generator().manual_seed(8)
+        cache = {n: torch.randn((cfg.n_layers, batch, 16, cfg.n_kv_heads, cfg.hd), generator=g)
+                 for n in ("k", "v")}
+        other = {n: x.clone() for n, x in cache.items()}
+        tok = torch.arange(batch)
+        for t in (0, 7, 8, 15):
+            want, cache = one(params, cache, tok, t)
+            got, other = sharded(params, other, tok, t)
+            _close(got, want, f"{shape} sequence-sharded decode at t={t}")
+    # the MoE layer over a 2-way tp mesh serves the 1x1 layer's prefill
     tokens = torch.tensor(synthetic.make_lm_batch(batch=2, seq_len=16, vocab=cfg.vocab,
                                                   seed=7)["tokens"])
     want, _ = tfm.make_prefill_step(_port_ctx("qwen3-moe-30b-a3b", 32, "seq"))(params, tokens)

@@ -18,6 +18,7 @@ autodiff: the same function in another summation order).
 import json
 import os
 
+import _torch_multishard_ref as R
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -231,13 +232,82 @@ def test_flash_attention_bwd_is_the_plain_versions_gradient(shape):
 
 
 def test_the_loss_refuses_a_sharded_mesh():
-    mesh = make_test_mesh(2, 1, device="cpu")
-    ctx = tfm.make_context(configs.reduced_config("gemma2-2b"), mesh,
-                           sharding.rules_for_mesh(mesh))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tfm.make_loss_fn(ctx)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        train_cli.train("fm", steps=1, device="cpu", mesh=mesh)
+    """The loss on a (2, 2) mesh (each dp shard's rows, each tp shard's
+    block of the vocabulary) is the one-shard loss; what it refuses is a
+    vocabulary that tp does not divide, or a batch that dp does not, as the
+    reference's ``shard_map`` does."""
+    import dataclasses
+
+    cfg = configs.reduced_config("gemma2-2b")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v) for k, v in synthetic.make_lm_batch(
+        batch=B, seq_len=S, vocab=cfg.vocab, seed=3).items()}
+    losses = []
+    for shape in ((1, 1), (2, 2)):
+        mesh = make_test_mesh(*shape, device="cpu")
+        ctx = tfm.make_context(cfg, mesh, sharding.rules_for_mesh(mesh))
+        losses.append(float(tfm.make_loss_fn(ctx, chunk=CHUNK)(params, batch)[1]["loss"]))
+    assert abs(losses[1] - losses[0]) <= REL * abs(losses[0]), losses
+    mesh = make_test_mesh(1, 3, device="cpu")
+    with pytest.raises(ValueError, match="does not split over 3 tp shards"):
+        tfm.make_loss_fn(tfm.make_context(cfg, mesh, sharding.rules_for_mesh(mesh)))
+    mesh = make_test_mesh(4, 1, device="cpu")
+    loss_fn = tfm.make_loss_fn(tfm.make_context(dataclasses.replace(cfg, vocab=512), mesh,
+                                                sharding.rules_for_mesh(mesh)), chunk=CHUNK)
+    with pytest.raises(ValueError, match="batch 2 does not split over 4 dp shards"):
+        loss_fn(params, batch)
+
+
+@pytest.fixture(scope="module")
+def driver_ref(tmp_path_factory):
+    """The reference's driver on four faked host devices
+    (`_torch_multishard_ref.py train`): 3 steps of reduced danube with no
+    compression, top-k and sign, and of fm, on (2, 2), (4, 1) and (1, 4)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path_factory.mktemp("driver") / "ref.npz"
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, os.path.join(root, "tests", "_torch_multishard_ref.py"),
+                           "train", str(out)], capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("shape,arch,compress", R.TRAIN_CASES,
+                         ids=lambda x: R.mesh_key(x) if isinstance(x, tuple) else str(x))
+def test_the_driver_on_a_mesh_follows_the_reference(driver_ref, monkeypatch, shape, arch,
+                                                    compress):
+    """`train(mesh=...)` for 3 steps from the reference's parameters: the
+    loss of every step within ``REL`` relative, and every parameter leaf
+    after the last within ``REL`` relative L2 (top-k's kept coordinates,
+    where a near-tie decides them, move no leaf past that)."""
+    from repro_torch.models import recsys as recsys_lib
+
+    prefix = f"params/{arch}/"
+    tree: dict = {}
+    for key, x in driver_ref.items():
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split("/")
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = x
+    lib = recsys_lib if arch == "fm" else tfm
+    monkeypatch.setattr(lib, "init_params", lambda *a, **k: convert.params_from_numpy(tree))
+    out = train_cli.train(arch, steps=R.TRAIN_STEPS, batch=R.TRAIN_B, seq=R.TRAIN_S,
+                          mesh=make_test_mesh(*shape, device="cpu"), grad_compress=compress,
+                          device="cpu")
+    key = f"{arch}/{compress}/{R.mesh_key(shape)}"
+    want = driver_ref[f"losses/{key}"]
+    got = [h["loss"] for h in out["history"]]
+    np.testing.assert_allclose(got, want, rtol=REL, atol=0, err_msg=key)
+    for name, p in _leaves(out["params"]):
+        p, w = p.double().numpy(), driver_ref[f"final/{key}{name}"].astype(np.float64)
+        err = np.linalg.norm(p - w) / max(np.linalg.norm(w), 1e-30)
+        assert err <= REL, f"{key}{name}: relative L2 {err} after {R.TRAIN_STEPS} steps"
 
 
 # ---------------------------------------------------------------------------
