@@ -36,6 +36,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import packing, pipeline, scoring, topk
 from repro_torch.core.scoring import CollectionStats, Scorer
 from repro_torch.tune import config as tune_config
@@ -157,12 +158,16 @@ def search_local_multi(
             d_tokens, d_len, pack_spec = docs.tokens, docs.lengths, docs.spec
         else:
             (d_tokens, d_len), pack_spec = docs, None
-        modes, weights, ab = scoring.lexical_epilogues(scorers, queries, stats)
-        scores, ids = ops.lexical_scan_topk(
-            queries, weights, ab, d_tokens, d_len, modes=modes, k=k,
-            block_d=cfg.lex_block(chunk_size, d_tokens.shape[0]), tile_d=cfg.lex_tile_d,
-            pack_spec=pack_spec,
-        )
+        tr = obs.tracer()
+        with tr.span("scan.epilogue", "scan"):
+            modes, weights, ab = scoring.lexical_epilogues(scorers, queries, stats)
+        # on a card: the host's time to enqueue the kernels
+        with tr.span("scan.launch", "scan"):
+            scores, ids = ops.lexical_scan_topk(
+                queries, weights, ab, d_tokens, d_len, modes=modes, k=k,
+                block_d=cfg.lex_block(chunk_size, d_tokens.shape[0]), tile_d=cfg.lex_tile_d,
+                pack_spec=pack_spec,
+            )
     state = topk.TopKState(scores=scores, ids=_offset_ids(ids, doc_id_offset))
     if init_state is not None:
         state = topk.merge(init_state, state)

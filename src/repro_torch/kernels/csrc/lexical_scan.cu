@@ -50,6 +50,16 @@
 //   together (topk_merge.cuh); every `block_d` rows a CTA also flushes every
 //   non-empty buffer. A second kernel, grid (lists), merges each list.
 //
+// Counters. Each CTA counts its flush passes by cause (an offer raised
+// `need`, the schedule of tile 1 and every 4th tile, `block_d` rows reached,
+// the final pass; a pass with several causes counts under the rows, else
+// under `need`), its list flushes and the candidates they took, and thread
+// 0's clock64 cycles inside flush passes (from after a pass's first barrier
+// to after its last, so the wait at the barrier is left out) and over the
+// whole tile loop. At its end it adds them once, by atomicAdd, into the
+// caller's uint64 `counters[kCounters]` (`lexical_scan.COUNTERS` names them
+// in order). They never change what the kernel computes.
+//
 // Float bits. Built with --fmad=false and without fast math: every product
 // and quotient rounds on its own, and logf / log1pf / sqrtf / '/' are the
 // IEEE-accurate library versions. The per-term sum runs l = 0, 1, 2, ... in
@@ -68,6 +78,14 @@ constexpr int kThreads = 512;  // 16 warps: the epilogue's float chains want the
 constexpr int kWarps = kThreads / 32;
 constexpr int kEmpty = static_cast<int>(0x80000000u);  // a free hash slot
 constexpr int kMapWords = 65536 / 32;
+// counters[]: flush passes (need, scheduled, block_d rows, final), list
+// flushes, candidates flushed, flush cycles, tile-loop cycles
+constexpr int kCounters = 8;
+// a CTA's counts in shared memory (registers are all taken): each warp's
+// list flushes and candidates, then thread 0's passes by cause, its flush
+// cycles and the loop's first cycle
+constexpr int kTally = 2 * kWarps + 5;
+enum { kTallyNeed = 2 * kWarps, kTallySched, kTallyRows, kTallyCycles, kTallyStart };
 
 // the token layouts: int32 rows, uint8 rows, uint16 rows, int32 bit-planes
 constexpr int kPackNone = 0, kPackU8 = 1, kPackU16 = 2, kPackBits = 3;
@@ -162,7 +180,7 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
                     const int* __restrict__ lens,       // [n_d]
                     topk::Lists L, int n_q, int l_q, int n_models, int n_d, int l_tok,
                     int row_bytes, int bits, int sentinel, int tile_docs, int flush_rows,
-                    int log2h) {
+                    int log2h, unsigned long long* __restrict__ counters) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_slots = n_q * l_q;
@@ -196,7 +214,8 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   unsigned long long* rkey = reinterpret_cast<unsigned long long*>(
       reinterpret_cast<uintptr_t>(n_terms + 2) + 7 & ~static_cast<uintptr_t>(7));
   unsigned long long* kkey = rkey + n_lists;
-  unsigned long long* scratch = kkey + n_lists;
+  unsigned long long* tally = kkey + n_lists;  // [kTally]
+  unsigned long long* scratch = tally + kTally;
   unsigned long long* sk = scratch + warp * sc;
   float* ss = reinterpret_cast<float*>(scratch + kWarps * sc) + warp * sc;
   const topk::Local loc{ts, ti, cnt, len, rkey, kkey};
@@ -223,6 +242,7 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
     *n_terms = 0;
     *need = 0;
   }
+  if (tid < kTally) tally[tid] = 0;
   __syncthreads();
   for (int s = tid; s < n_slots; s += kThreads) {
     const int term = q_safe[s];
@@ -305,12 +325,16 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
+  if (tid == 0) tally[kTallyStart] = clock64();
   // runs between barriers, when an offer raised `need`, every `flush_rows`
   // rows (flushing every non-empty buffer) and at the end; then raises each
   // threshold to the bound the CTAs proved
   auto flush = [&](bool all) {
     __syncthreads();
-    if (tid == 0) *need = 0;
+    if (tid == 0) {
+      *need = 0;
+      tally[kTallyCycles] -= clock64();  // the pass's cycles: its end less its start
+    }
     const int start = (blockIdx.x * kWarps) % n_lists;
     for (int j = warp; j < n_lists; j += kWarps) {
       const int l = (start + j) % n_lists;
@@ -318,12 +342,17 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
       // a list's first flush comes after one tile, so that the CTA's bound
       // is published early; then when one more tile could overflow it
       if (all ? c > 0 : c + tile_docs > L.cap || (c > 0 && len[l] == 0)) {
+        if (lane == 0) {
+          ++tally[warp];
+          tally[kWarps + warp] += c;
+        }
         topk::warp_flush(L, loc, cb_base, blockIdx.x, blockIdx.x, gridDim.x, l, l, sk, ss);
       }
     }
     __syncthreads();
     for (int l = tid; l < n_lists; l += kThreads) topk::refresh(L, loc, l, l);
     __syncthreads();
+    if (tid == 0) tally[kTallyCycles] += clock64();
   };
 
   int* wc = wcnt + warp * n_slots;
@@ -348,7 +377,10 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
     // the last tile's offers are all in (the barrier above)
     const bool all = since_flush >= flush_rows;
     if (all) since_flush = 0;
-    if (all || *need || (t & 3) == 0 || t == 1) flush(all);
+    if (all || *need || (t & 3) == 0 || t == 1) {
+      if (tid == 0) ++tally[all ? kTallyRows : *need ? kTallyNeed : kTallySched];
+      flush(all);
+    }
     issue(t + 1);  // the next tile lands while this one is counted
     const int d0 = tile_start(t);
     const int nt = min(tile_docs, n_d - d0);
@@ -411,6 +443,19 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   for (int l = tid; l < n_lists; l += kThreads) {
     L.st_len[static_cast<size_t>(blockIdx.x) * n_lists + l] = len[l];
   }
+  // the flush's last barrier has put every warp's counts in
+  if (tid == 0) {
+    unsigned long long lists = 0, cands = 0;
+    for (int i = 0; i < kWarps; ++i) {
+      lists += tally[i];
+      cands += tally[kWarps + i];
+    }
+    const unsigned long long counts[kCounters] = {
+        tally[kTallyNeed], tally[kTallySched], tally[kTallyRows], 1ull, lists, cands,
+        tally[kTallyCycles], clock64() - tally[kTallyStart]};
+#pragma unroll
+    for (int i = 0; i < kCounters; ++i) atomicAdd(&counters[i], counts[i]);
+  }
 }
 
 // The final top k of each list from the CTAs' lists: grid (n_lists).
@@ -425,7 +470,8 @@ lexical_scan_merge(topk::Lists L, float* __restrict__ out_s, int* __restrict__ o
 
 // Plain C entry point for ctypes: the scan, then the merge. `pack` is the
 // token layout (kPack*), `l_tok` the unpacked row length, `row_bytes` a
-// stored row's bytes, `bits` the bit-planes and `sentinel` the packed PAD.
+// stored row's bytes, `bits` the bit-planes and `sentinel` the packed PAD;
+// the scan adds its counts to `counters` (kCounters uint64s).
 // Returns cudaGetLastError() after the launches (the Python wrapper raises
 // when that is not cudaSuccess).
 extern "C" int lexical_scan_launch(
@@ -434,7 +480,7 @@ extern "C" int lexical_scan_launch(
     void* thr, void* cb_s, void* cb_i, void* out_s, void* out_i, int n_q, int l_q,
     int n_models, int n_d, int l_tok, int row_bytes, int pack, int bits, int sentinel, int k,
     int k_pad, int cap, int n_splits, int tile_docs, int flush_rows, int log2h,
-    int smem_bytes, int merge_smem_bytes, void* stream) {
+    int smem_bytes, int merge_smem_bytes, void* counters, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_lists = n_models * n_q;
   const topk::Lists L{static_cast<float*>(st_s), static_cast<int*>(st_i),
@@ -458,7 +504,8 @@ extern "C" int lexical_scan_launch(
       static_cast<const int*>(q_safe), static_cast<const float*>(weights),
       static_cast<const float*>(ab), static_cast<const int*>(modes),
       static_cast<const unsigned char*>(docs), static_cast<const int*>(lens), L, n_q, l_q,
-      n_models, n_d, l_tok, row_bytes, bits, sentinel, tile_docs, flush_rows, log2h);
+      n_models, n_d, l_tok, row_bytes, bits, sentinel, tile_docs, flush_rows, log2h,
+      static_cast<unsigned long long*>(counters));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaFuncSetAttribute(lexical_scan_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,

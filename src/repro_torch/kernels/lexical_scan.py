@@ -29,11 +29,17 @@ where the count reads it. Results are the unpacked call's, bit for bit.
 
 The public entry point is `repro_torch.kernels.ops.lexical_scan_topk`, which
 picks between the two by the tensors' device and counts launches.
+
+Every launch of the kernel adds its counts (`COUNTERS`: flush passes by
+cause, list flushes, candidates flushed, and one thread's cycles in flushes
+and in the whole tile loop, summed over the CTAs) into one array a device;
+:func:`read_counters` returns them and zeroes them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -177,6 +183,7 @@ def outputs_meta(q_tokens, weights, *, k: int) -> tuple[torch.Tensor, torch.Tens
 
 WARPS = 16  # the kernel's CTA: 512 threads
 MAP_BYTES = 65536 // 8  # the query terms' bitmap
+TALLY_BYTES = 8 * (2 * WARPS + 5)  # a CTA's counts (the kernel's kTally)
 
 
 def _buf_bytes(tile_docs: int, row_bytes: int) -> int:
@@ -201,9 +208,9 @@ def _smem_bytes(n_models: int, n_q: int, l_q: int, tile_docs: int, row_b: int, c
         + 4 * lists + 2  # thresholds (score, id), buffer counts, list lengths, 2 flags
     )
     # + the staging ring, each list's r-th and k-th keys (8-byte aligned),
-    # each warp's flush scratch
+    # the counters' tally, each warp's flush scratch
     return (2 * _buf_bytes(tile_docs, row_b) + MAP_BYTES + 4 * words + 8 + 16 * lists
-            + WARPS * next_pow2(cap) * 12)
+            + TALLY_BYTES + WARPS * next_pow2(cap) * 12)
 
 
 def _hash_size(slots: int) -> int:
@@ -249,7 +256,53 @@ def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int
 
 
 # the C entry point's parameters, in order: p a pointer, i an int
-LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 18 + "p"
+LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 18 + "pp"
+
+# the kernel's counters, in the order of its `counters` array (kCounters):
+# flush passes because an offer raised `need`, on the schedule (tile 1 and
+# every 4th tile), because `block_d` rows were reached (a pass with several
+# causes counts under the rows, else under `need`), and the final pass (one
+# a CTA); list flushes; candidates flushed; and each CTA's thread 0's clock64
+# cycles inside flush passes and over the whole tile loop
+COUNTERS = ("passes_need", "passes_scheduled", "passes_rows", "passes_final",
+            "list_flushes", "candidates", "flush_cycles", "loop_cycles")
+_counters: dict[torch.device, torch.Tensor] = {}
+_counters_lock = threading.Lock()
+
+
+def _device_key(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _counter_array(dev: torch.device) -> torch.Tensor:
+    """The device's counters (uint64 on the card, held as int64), made zero
+    on first use; the launch adds to them on any stream."""
+    key = _device_key(dev)
+    arr = _counters.get(key)
+    if arr is None:
+        with _counters_lock:
+            arr = _counters.get(key)
+            if arr is None:
+                arr = torch.zeros(len(COUNTERS), dtype=torch.int64, device=key)
+                torch.cuda.synchronize(key)  # zero before a launch on another stream
+                _counters[key] = arr
+    return arr
+
+
+def read_counters(device) -> dict[str, int]:
+    """The kernel's counts on ``device`` since the last read, by
+    `COUNTERS` name, and zeroes them; all 0 where it never ran. The read
+    copies on the current stream: the launches queued there are in it,
+    those of other streams only once they have finished."""
+    arr = _counters.get(_device_key(device))
+    if arr is None:
+        return dict.fromkeys(COUNTERS, 0)
+    values = arr.tolist()
+    arr.zero_()
+    return dict(zip(COUNTERS, values))
 
 
 def _lib() -> ctypes.CDLL:
@@ -300,6 +353,7 @@ def lexical_scan_topk_cuda(
     out_s = torch.empty((n_models, n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_models, n_q, k), dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    counters = _counter_array(dev)
     for q0 in range(0, n_q, geo["group"]):
         g = min(geo["group"], n_q - q0)
         q_g = q_safe[q0 : q0 + g].contiguous()
@@ -317,7 +371,7 @@ def lexical_scan_topk_cuda(
             pack, bits, sentinel, k, geo["k_pad"], geo["cap"], geo["n_splits"],
             geo["tile_docs"], geo["flush_rows"], geo["log2h"],
             _smem_bytes(n_models, g, l_q, geo["tile_docs"], geo["row_bytes"], geo["cap"]),
-            geo["merge_smem"], stream,
+            geo["merge_smem"], counters.data_ptr(), stream,
         )
         _raise_on(lib, rc, "lexical_scan launch")
         if not whole:

@@ -28,6 +28,11 @@ Tracing observes; it never participates. No instrumented code path reads
 tracer state to make a decision, so a traced run executes the exact
 instruction stream of an untraced one — the chaos suite pins run-file
 byte-identity with tracing ON.
+
+:meth:`Tracer.tags` ties the spans of one unit of work together without
+passing an id down the call chain: inside ``with tracer.tags(block=7):``
+every span, record and instant the thread makes carries ``block=7`` (the
+serve dispatch tags a block's spans in the session and the scan this way).
 """
 
 from __future__ import annotations
@@ -126,6 +131,27 @@ class _Span:
         return False  # never swallow
 
 
+class _Tags:
+    """A live :meth:`Tracer.tags` scope: pushes its attributes onto the
+    thread's tags on entry, restores the previous tags on exit."""
+
+    __slots__ = ("_local", "_attrs", "_prev")
+
+    def __init__(self, local: threading.local, attrs: dict):
+        self._local = local
+        self._attrs = attrs
+        self._prev: dict = {}
+
+    def __enter__(self) -> "_Tags":
+        self._prev = getattr(self._local, "tags", {})
+        self._local.tags = {**self._prev, **self._attrs}
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._local.tags = self._prev
+        return False
+
+
 class Tracer:
     """Span/instant recorder over a bounded thread-safe buffer.
 
@@ -155,14 +181,27 @@ class Tracer:
         # stable small ints for thread ids at export time (get_ident values
         # are reused by the OS; we only need a per-trace label)
         self._t_origin = clock()
+        self._local = threading.local()  # each thread's `tags`
 
     # -- recording (the fast paths) -----------------------------------------
+
+    def _tagged(self, attrs: dict) -> dict:
+        tags = getattr(self._local, "tags", None)
+        return {**tags, **attrs} if tags else attrs
+
+    def tags(self, **attrs: Any):
+        """Context manager: every span, record and instant this thread makes
+        inside it carries ``attrs`` (a span's own attributes win). Scopes
+        nest; the inner one adds to the outer's."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Tags(self._local, attrs)
 
     def span(self, name: str, cat: str = "", **attrs: Any):
         """Context manager timing its body; records on exit (even on error)."""
         if not self.enabled:
             return NULL_SPAN
-        return _Span(self, name, cat, attrs)
+        return _Span(self, name, cat, self._tagged(attrs))
 
     def instant(self, name: str, cat: str = "", **attrs: Any) -> None:
         """A zero-duration marker (fault fired, retry enqueued, ...)."""
@@ -177,7 +216,7 @@ class Tracer:
                 ts=self._clock(),
                 dur=0.0,
                 tid=thread.ident or 0,
-                attrs=attrs,
+                attrs=self._tagged(attrs),
                 tname=thread.name,
             )
         )
@@ -194,7 +233,9 @@ class Tracer:
     ) -> None:
         """Record a span with an explicit ``[t0, t1]`` window on the tracer
         clock — for intervals whose start predates the recording site (a
-        serve request's enqueue→reply life, measured at reply time)."""
+        serve request's enqueue→reply life, measured at reply time).
+        ``tid`` puts it on a lane of its own instead of the calling
+        thread's."""
         if not self.enabled:
             return
         thread = threading.current_thread()
@@ -206,7 +247,7 @@ class Tracer:
                 ts=t0,
                 dur=max(0.0, t1 - t0),
                 tid=(thread.ident or 0) if tid is None else tid,
-                attrs=attrs,
+                attrs=self._tagged(attrs),
                 tname=thread.name if tid is None else "",
             )
         )

@@ -82,8 +82,6 @@ class RejectedError(RuntimeError):
 # batch sizes are small integers bucketed like the padder buckets them:
 # powers of two (latency buckets would waste resolution below 1.0)
 _BATCH_BOUNDS = tuple(float(1 << i) for i in range(11))  # 1 .. 1024
-# occupancy is a fraction: linear buckets resolve the whole [0, 1] range
-_OCCUPANCY_BOUNDS = tuple(i / 10 for i in range(1, 11))
 
 
 class RetrievalService:
@@ -136,6 +134,7 @@ class RetrievalService:
             for kind, sess in self.sessions.items()
         }
         self._next_rid = 0
+        self._next_block = 0
         self.metrics: list[BatchRecord] = []
         self.admission = admission
         self.policy = policy
@@ -228,55 +227,66 @@ class RetrievalService:
         return sum(len(b) for b in self._batchers.values())
 
     def _dispatch(self, kind: str, block: QueryBlock) -> dict[int, SearchResult]:
+        """Run one closed block and build its replies.
+
+        Traced, a block is ``serve.batch_wait`` (its oldest admission to its
+        close), ``serve.dispatch`` (the session's search, holding the
+        session's and the scan's spans) and ``serve.reply`` (everything after
+        the search), each tagged with the block's number, plus one
+        ``serve.request`` a request (admission to reply, same tag) on the
+        service's request lane, apart from the thread's own. The wait and the
+        requests are recorded afterwards from the block's times on the
+        service clock, which is the tracer's clock in production.
+        """
         session = self.sessions[kind]
         tr = obs.tracer()
-        t0 = self._clock()
-        with tr.span(
-            "serve.dispatch", "serve",
-            kind=kind, n_real=block.n_real, n_padded=block.n_padded,
-            trigger=block.trigger,
-        ):
-            state = session.search(block.queries)
-        latency = self._clock() - t0
-        self.metrics.append(
-            BatchRecord(
-                kind=kind,
-                n_real=block.n_real,
-                n_padded=block.n_padded,
+        n = self._next_block
+        self._next_block += 1
+        queue_wait = block.closed_at - block.oldest_arrival
+        with tr.tags(block=n):
+            tr.record("serve.batch_wait", block.oldest_arrival, block.closed_at, "serve",
+                      trigger=block.trigger, n_real=block.n_real)
+            t0 = self._clock()
+            with tr.span(
+                "serve.dispatch", "serve",
+                kind=kind, n_real=block.n_real, n_padded=block.n_padded,
                 trigger=block.trigger,
-                queue_wait_s=block.closed_at - block.oldest_arrival,
-                latency_s=latency,
-            )
-        )
-        met = self._met()
-        met.counter("serve.requests").inc(block.n_real)
-        met.counter("serve.batches").inc()
-        met.histogram("serve.batch_size", bounds=_BATCH_BOUNDS).observe(block.n_real)
-        met.histogram(
-            "serve.batch_occupancy", bounds=_OCCUPANCY_BOUNDS
-        ).observe(block.n_real / block.n_padded)
-        met.histogram("serve.queue_wait_s").observe(
-            block.closed_at - block.oldest_arrival
-        )
-        met.histogram("serve.latency_s").observe(latency)
-        # per-request lifecycle spans (enqueue → reply), recorded at reply
-        # time on the service clock (== the tracer clock in production)
-        done = self._clock()
-        request_hist = met.histogram("serve.request_s")
-        recent = (
-            met.histogram("serve.recent.request_s") if self.policy is not None else None
-        )
-        for rid, arrival in zip(block.rids, block.arrivals):
-            tr.record("serve.request", arrival, done, "serve", rid=rid, kind=kind)
-            request_hist.observe(done - arrival)
-            if recent is not None:
-                recent.observe(done - arrival)
-        scores = unpad_results(np.asarray(state.scores), block.n_real)
-        ids = unpad_results(np.asarray(state.ids), block.n_real)
-        return {
-            rid: SearchResult(rid=rid, scores=scores[row], ids=ids[row])
-            for row, rid in enumerate(block.rids)
-        }
+            ):
+                state = session.search(block.queries)
+            latency = self._clock() - t0
+            with tr.span("serve.reply", "serve"):
+                self.metrics.append(
+                    BatchRecord(
+                        kind=kind,
+                        n_real=block.n_real,
+                        n_padded=block.n_padded,
+                        trigger=block.trigger,
+                        queue_wait_s=queue_wait,
+                        latency_s=latency,
+                    )
+                )
+                met = self._met()
+                met.counter("serve.requests").inc(block.n_real)
+                met.counter("serve.batches").inc()
+                met.histogram("serve.batch_size", bounds=_BATCH_BOUNDS).observe(block.n_real)
+                met.histogram("serve.queue_wait_s").observe(queue_wait)
+                met.histogram("serve.latency_s").observe(latency)
+                done = self._clock()
+                recent = (
+                    met.histogram("serve.recent.request_s")
+                    if self.policy is not None else None
+                )
+                for rid, arrival in zip(block.rids, block.arrivals):
+                    tr.record("serve.request", arrival, done, "serve", tid=id(self),
+                              rid=rid, kind=kind)
+                    if recent is not None:
+                        recent.observe(done - arrival)
+                scores = unpad_results(np.asarray(state.scores), block.n_real)
+                ids = unpad_results(np.asarray(state.ids), block.n_real)
+                return {
+                    rid: SearchResult(rid=rid, scores=scores[row], ids=ids[row])
+                    for row, rid in enumerate(block.rids)
+                }
 
     def poll(self, limit: int | None = None) -> dict[int, SearchResult]:
         """Dispatch every block whose size/deadline trigger has fired

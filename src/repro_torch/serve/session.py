@@ -29,10 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import cluster
+from repro_torch import cluster, obs
 from repro_torch.core import anchors, packing, pipeline, scan, topk
 from repro_torch.core.scoring import PAD_TOKEN, CollectionStats, Scorer, get_scorer
 from repro_torch.device import resolve_device
+from repro_torch.kernels import lexical_scan
 from repro_torch.kernels.score_topk import STAGE_BYTES
 from repro_torch.tune import config as tune_config
 
@@ -134,13 +135,32 @@ class LexicalSession:
 
     def search(self, q_block: np.ndarray) -> topk.TopKState:
         """Scan one padded query block; returns once the results are on the
-        host."""
-        q = torch.as_tensor(np.asarray(q_block, np.int32), device=self.device)
-        state = scan.search_local(
-            q, self._docs, self.scorer, k=self.k, chunk_size=self.chunk_size,
-            stats=self._stats,
-        )
-        return _to_host(state)
+        host.
+
+        Traced, the call is ``session.search``, holding ``session.upload``
+        (the block to the device), the scan's ``scan.epilogue`` and
+        ``scan.launch``, and ``session.to_host`` (waiting for the device and
+        the copy). On a card the span also carries the lexical kernel's
+        counters for the block (`lexical_scan.read_counters`): what earlier
+        launches left is dropped first, and the block's counts are read
+        once the copy has synchronized, so neither read waits for work.
+        """
+        tr = obs.tracer()
+        counted = tr.enabled and self.device.type == "cuda"
+        if counted:
+            lexical_scan.read_counters(self.device)
+        with tr.span("session.search", "session") as span:
+            with tr.span("session.upload", "session"):
+                q = torch.as_tensor(np.asarray(q_block, np.int32), device=self.device)
+            state = scan.search_local(
+                q, self._docs, self.scorer, k=self.k, chunk_size=self.chunk_size,
+                stats=self._stats,
+            )
+            with tr.span("session.to_host", "session"):
+                state = _to_host(state)
+            if counted:
+                span.set(**lexical_scan.read_counters(self.device))
+        return state
 
 
 class ShardedLexicalSession:

@@ -35,6 +35,8 @@ same bytes on the card. The dense session pads its corpus once (the
 wrapper's bits, no corpus-sized allocation a block); the ragged bag and
 the reduced GNN in every regime repeat their bytes on the card, and the GNN
 holds to the CPU (float64 within 1e-5, float32 logits within 2e-4 / 2e-5).
+The lexical kernel's counters move on every launch and zero when read, and
+a traced session's block carries its own launch's counts.
 ``chip_smoke.py`` makes the same checks at the full width.
 """
 
@@ -93,6 +95,68 @@ def test_cuda_kernel_matches_plain_version_bitwise():
         assert ops.LAUNCHES["lexical_scan_topk"] == before + 1
         assert torch.equal(ki, pi)
         assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_lexical_scan_counters():
+    """The kernel's counters move on every launch and zero when read: at
+    least one candidate flushed for each slot of each final list, flush
+    cycles within the loop's, a flush pass at least every fourth tile of a
+    CTA and one final pass a CTA; the outputs stay the plain version's bits."""
+    dev = _card()
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    lexical_scan.read_counters(dev)  # what earlier launches left
+    for seed, (n_d, l_d, k, block_d, tile_d) in enumerate(
+        [(300, 23, 37, 100, 16), (2048, 64, 64, 256, 64), (8192, 24, 3000, 4096, 16),
+         (65536, 16, 100, 65536, 32)]
+    ):
+        q, toks, lens = _lexical_inputs(900 + seed, n_d, l_d, 7, 5, 30, 0)
+        d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
+        stats = anchors.collection_stats(d, dl, 30, chunk_size=n_d)
+        modes, w, ab = scoring.lexical_epilogues(grid, qt, stats)
+        ks, ki = ops.lexical_scan_topk(qt, w, ab, d, dl, modes=modes, k=k,
+                                       block_d=block_d, tile_d=tile_d)
+        got = lexical_scan.read_counters(dev)
+        assert lexical_scan.read_counters(dev) == dict.fromkeys(lexical_scan.COUNTERS, 0)
+        ps, pi = lexical_scan.lexical_scan_topk_ref(qt, w, ab, d, dl, modes=modes, k=k,
+                                                    block_d=block_d, tile_d=tile_d)
+        assert torch.equal(ki, pi)
+        assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+        geo = lexical_scan.launch_geometry(
+            len(grid), 7, 5, n_d, l_d, k, block_d, tile_d,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        assert geo["n_groups"] == 1
+        n_splits, tiles = geo["n_splits"], -(-n_d // geo["tile_docs"])
+        per_cta = [-(-(tiles - c) // n_splits) for c in range(n_splits)]
+        passes = sum(got[c] for c in ("passes_need", "passes_scheduled", "passes_rows",
+                                      "passes_final"))
+        assert got["passes_final"] == n_splits, got
+        assert passes >= sum(-(-t // 4) for t in per_cta) + n_splits, got
+        assert got["candidates"] >= len(grid) * 7 * min(k, n_d), got
+        assert got["list_flushes"] >= len(grid) * 7, got
+        assert 0 < got["flush_cycles"] <= got["loop_cycles"], got
+
+
+@pytest.mark.cuda
+def test_cuda_traced_lexical_session_carries_its_blocks_counts():
+    """A traced block's ``session.search`` span carries its own launch's
+    counts, not what an untraced block before it left in the array."""
+    from repro_torch import obs
+    from repro_torch.serve.session import LexicalSession
+
+    dev = _card()
+    q, toks, lens = _lexical_inputs(950, 4096, 24, 8, 4, 50, 0)
+    session = LexicalSession(toks, lens, "ql_lm", k=20, chunk_size=4096, vocab=50,
+                             token_pack="none", device=dev)
+    untraced = session.search(q)
+    with obs.session() as (tr, _):
+        traced = [session.search(q) for _ in range(2)]
+    first, second = (s.attrs for s in tr.spans("session.search"))
+    assert first["passes_final"] == second["passes_final"] > 0, (first, second)
+    assert 0 < first["flush_cycles"] <= first["loop_cycles"]
+    for state in traced:
+        assert torch.equal(state.ids, untraced.ids)
+        assert torch.equal(state.scores.view(torch.int32), untraced.scores.view(torch.int32))
 
 
 # n_d, L_d, vocab, token_pack, first row (rows before it sliced off), k, block_d, tile_d

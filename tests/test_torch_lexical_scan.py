@@ -186,6 +186,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert ops.LAUNCHES == before
 
 
+def test_the_counters_name_each_of_the_kernels_counts():
+    """`COUNTERS` has a name for each uint64 the kernel adds to (its
+    ``kCounters``), and a device the kernel never ran on reads all zero."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "lexical_scan.cu").read_text()
+    assert int(re.search(r"constexpr int kCounters = (\d+);", src).group(1)) == len(
+        lexical_scan.COUNTERS) == len(set(lexical_scan.COUNTERS))
+    assert lexical_scan.read_counters("cpu") == dict.fromkeys(lexical_scan.COUNTERS, 0)
+
+
 def test_wrapper_checks_its_arguments():
     q = torch.zeros((2, 3), dtype=torch.int32)
     w = torch.zeros((1, 2, 3))
