@@ -39,12 +39,27 @@
 //      the token up in an open-addressing table of the distinct terms; the
 //      warp's count of that term goes up by one (shared-memory atomics). A
 //      token is looked at once, however many queries share its term.
-//   3. epilogue: the warp's lanes take the (model, query) lists in turn; each
-//      reads the counts of its query's terms and scores the row. A row that
-//      has none of the query's terms takes a fast path with the same bits:
-//      its per-term sum is fixed per list (precomputed with the same
-//      operations on tf = 0), so only the length prior and norm remain.
-//      The score is offered to the list's threshold (topk_merge.cuh).
+//      A term's first hit in the row also appends it to the warp's list of
+//      the row's matched terms and puts its place in that list in the high
+//      half of the term's count word (the count stays in the low half: no
+//      row of 2^16 tokens fits the staging ring, even in 1-bit planes).
+//   3. epilogue, model by model: first the warp's lanes take the row's
+//      matched terms and score each once into the warp's table, with the w
+//      of the term's first slot. A slot of the model whose w has the same
+//      bits as that slot's would score the very same bits at this row, the
+//      same function on the same arguments; at ql, bm25 and tf-idf every
+//      slot does, as w depends on the term alone. Then the lanes take the
+//      model's (model, query) lists in turn and sum each list's slots in
+//      order l = 0, 1, ... Where every w of the list is finite and shares
+//      its term's score, and the norm is positive, a slot with tf > 0 reads
+//      its term's score from the table and a slot with tf = 0 scores w * 0,
+//      which is what the term's formula gives at tf 0 there; four slots'
+//      reads go out together, with no branch, before their sum runs on. Any
+//      other list scores each slot itself. The list's score is offered to
+//      its threshold (topk_merge.cuh). Where no two slots share a term, the table holds
+//      one score a matched slot, as many as scoring each slot on its own
+//      would take. The slots' terms and weights lie l-major in shared
+//      memory, so that the lanes' reads of one l fall in distinct banks.
 //   Before the next tile, buffers that one more tile could overflow are
 //   flushed into the CTA's own lists, and the CTAs prove a common threshold
 //   together (topk_merge.cuh); every `block_d` rows a CTA also flushes every
@@ -56,7 +71,11 @@
 // under `need`), its list flushes and the candidates they took, and thread
 // 0's clock64 cycles inside flush passes (from after a pass's first barrier
 // to after its last, so the wait at the barrier is left out) and over the
-// whole tile loop. At its end it adds them once, by atomicAdd, into the
+// whole tile loop; then the term scores its warps computed with tf > 0 (a
+// table entry, or a slot that scores itself), the (row, list, slot) uses of
+// them (what scoring each slot on its own would compute), and thread 0's
+// cycles from the end of each of its rows' count to the end of the row's
+// offers. At its end it adds them once, by atomicAdd, into the
 // caller's uint64 `counters[kCounters]` (`lexical_scan.COUNTERS` names them
 // in order). They never change what the kernel computes.
 //
@@ -79,13 +98,16 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kEmpty = static_cast<int>(0x80000000u);  // a free hash slot
 constexpr int kMapWords = 65536 / 32;
 // counters[]: flush passes (need, scheduled, block_d rows, final), list
-// flushes, candidates flushed, flush cycles, tile-loop cycles
-constexpr int kCounters = 8;
+// flushes, candidates flushed, flush cycles, tile-loop cycles, term scores,
+// term uses, epilogue cycles
+constexpr int kCounters = 11;
 // a CTA's counts in shared memory (registers are all taken): each warp's
-// list flushes and candidates, then thread 0's passes by cause, its flush
-// cycles and the loop's first cycle
-constexpr int kTally = 2 * kWarps + 5;
-enum { kTallyNeed = 2 * kWarps, kTallySched, kTallyRows, kTallyCycles, kTallyStart };
+// list flushes, candidates, term scores and term uses, then thread 0's
+// passes by cause, its flush cycles, the loop's first cycle and its
+// epilogue cycles
+constexpr int kTally = 4 * kWarps + 6;
+enum { kTallyScores = 2 * kWarps, kTallyUses = 3 * kWarps };
+enum { kTallyNeed = 4 * kWarps, kTallySched, kTallyRows, kTallyCycles, kTallyStart, kTallyEpi };
 
 // the token layouts: int32 rows, uint8 rows, uint16 rows, int32 bit-planes
 constexpr int kPackNone = 0, kPackU8 = 1, kPackU16 = 2, kPackBits = 3;
@@ -193,14 +215,23 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   unsigned* map = reinterpret_cast<unsigned*>(ring + 2 * buf_bytes);  // [kMapWords]
   int* hkey = reinterpret_cast<int*>(map + kMapWords);  // [hsize]
   int* hval = hkey + hsize;                           // [hsize]: the term's index
-  int* slot_term = hval + hsize;                      // [n_slots]
+  // the slots l-major, [l_q][n_q], so that lanes over the queries read
+  // consecutive words (q-major, a warp's 32 reads of one l hit 4 banks)
+  int* slot_term = hval + hsize;                      // [n_slots]: a slot's term
   const int qwords = (n_q + 31) / 32;
-  unsigned* tmask = reinterpret_cast<unsigned*>(slot_term + n_slots);  // [n_slots][qwords]
-  unsigned* qmask = tmask + n_slots * qwords;         // [kWarps][qwords]: queries a row matches
-  int* wcnt = reinterpret_cast<int*>(qmask + kWarps * qwords);  // [kWarps][n_slots]
-  float* w = reinterpret_cast<float*>(wcnt + kWarps * n_slots);  // [n_models, n_slots]
-  float* zsum = w + n_models * n_slots;               // [n_lists]: the per-term sum at tf 0
-  float* alpha = zsum + n_lists;
+  int* wcnt = slot_term + n_slots;                    // [kWarps][n_slots]
+  // a row matches at most min(n_slots, l_tok) distinct terms
+  const int n_cap = min(n_slots, l_tok);
+  int* mterm = wcnt + kWarps * n_slots;               // [kWarps][n_cap]: the row's matched terms
+  int* n_match = mterm + kWarps * n_cap;              // [kWarps]: their number
+  float* tab = reinterpret_cast<float*>(n_match + kWarps);  // [kWarps][n_cap]: their scores
+  int* tfirst = reinterpret_cast<int*>(tab + kWarps * n_cap);  // [n_slots]: a term's first slot
+  int* tslots = tfirst + n_slots;                     // [n_slots]: the slots holding a term
+  // [n_models][qwords]: the lists with a slot whose w is not finite or
+  // differs from the w of its term's first slot
+  unsigned* qown = reinterpret_cast<unsigned*>(tslots + n_slots);
+  float* w = reinterpret_cast<float*>(qown + n_models * qwords);  // [n_models][n_slots]
+  float* alpha = w + n_models * n_slots;
   float* beta = alpha + n_models;
   int* mode = reinterpret_cast<int*>(beta + n_models);
   float* ts = reinterpret_cast<float*>(mode + n_models);  // [n_lists]
@@ -225,8 +256,16 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   for (int i = tid; i < kMapWords; i += kThreads) map[i] = 0;
   for (int i = tid; i < hsize; i += kThreads) hkey[i] = kEmpty;
   for (int i = tid; i < kWarps * n_slots; i += kThreads) wcnt[i] = 0;
-  for (int i = tid; i < (n_slots + kWarps) * qwords; i += kThreads) tmask[i] = 0;
-  for (int i = tid; i < n_models * n_slots; i += kThreads) w[i] = weights[i];
+  for (int i = tid; i < n_slots; i += kThreads) {
+    tfirst[i] = n_slots;
+    tslots[i] = 0;
+  }
+  for (int i = tid; i < n_models * qwords; i += kThreads) qown[i] = 0;
+  for (int i = tid; i < kWarps; i += kThreads) n_match[i] = 0;
+  for (int i = tid; i < n_models * n_slots; i += kThreads) {  // weights are [n_models, n_q, l_q]
+    const int m = i / n_slots, s = i - m * n_slots, qi = s / l_q;
+    w[m * n_slots + (s - qi * l_q) * n_q + qi] = weights[i];
+  }
   for (int m = tid; m < n_models; m += kThreads) {
     alpha[m] = ab[2 * m];
     beta[m] = ab[2 * m + 1];
@@ -270,23 +309,23 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   };
   for (int s = tid; s < n_slots; s += kThreads) {
     const int t = lookup(q_safe[s]);
-    const int qi = s / l_q;
-    slot_term[s] = t;
-    atomicOr(&tmask[t * qwords + qi / 32], 1u << (qi & 31));
+    const int qi = s / l_q, j = (s - qi * l_q) * n_q + qi;
+    slot_term[j] = t;
+    atomicAdd(&tslots[t], 1);
+    atomicMin(&tfirst[t], j);
   }
-  // each list's per-term sum at tf = 0: the same operations as the full
-  // path, none of which depends on the row (ql: (w * 0) / dlf is w * 0 for
-  // any dlf >= 1; bm25: (w * 0) / (0 + norm) is w * 0 for any norm > 0, and
-  // the fast path is taken only then; tfidf: w * log1pf(0))
-  for (int p = tid; p < n_lists; p += kThreads) {
-    const int m = p / n_q, qi = p - m * n_q;
-    const int kind = mode[m] & 3;
-    float s = 0.0f;
-    for (int l = 0; l < l_q; ++l) {
-      const float pt = term_score(kind, w[m * n_slots + qi * l_q + l], 0.0f, 1.0f, 1.0f);
-      s = (l == 0) ? pt : s + pt;
+  __syncthreads();
+  // the (model, query) lists with a slot whose w is not finite (its zero
+  // path is not w * 0) or differs in its bits from the w of its term's
+  // first slot: they score each slot themselves (at tf = 0 the others'
+  // terms give w * 0: ql's (w * 0) / dlf for any dlf >= 1, bm25's
+  // (w * 0) / (0 + norm) for any norm > 0, tf-idf's w * log1pf(0))
+  for (int p = tid; p < n_models * n_slots; p += kThreads) {
+    const int m = p / n_slots, j = p - m * n_slots, qi = j % n_q;
+    if (w[p] * 0.0f != 0.0f ||
+        __float_as_uint(w[p]) != __float_as_uint(w[m * n_slots + tfirst[slot_term[j]]])) {
+      atomicOr(&qown[m * qwords + qi / 32], 1u << (qi & 31));
     }
-    zsum[p] = s;
   }
   __syncthreads();
 
@@ -356,16 +395,16 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   };
 
   int* wc = wcnt + warp * n_slots;
-  unsigned* qm = qmask + warp * qwords;
+  int* mt = mterm + warp * n_cap;
+  float* tb = tab + warp * n_cap;
   // count one token against the query terms
   auto count = [&](int tok) {
     if ((map[(tok & 0xffff) >> 5] >> (tok & 31)) & 1u) {
       const int idx = lookup(tok);
-      if (idx >= 0 && atomicAdd(&wc[idx], 1) == 0) {  // the term's first hit: mark its queries
-        for (int j = 0; j < qwords; ++j) {
-          const unsigned qbits = tmask[idx * qwords + j];
-          if (qbits) atomicOr(&qm[j], qbits);
-        }
+      if (idx >= 0 && atomicAdd(&wc[idx], 1) == 0) {  // the term's first hit: list it
+        const int at = atomicAdd(&n_match[warp], 1);
+        mt[at] = idx;
+        atomicOr(&wc[idx], static_cast<int>(static_cast<unsigned>(at + 1) << 16));
       }
     }
   };
@@ -400,28 +439,61 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
         for (int x = lane; x < l_tok; x += 32) count(row_token<Pack>(row, x, sentinel));
       }
       __syncwarp();
+      if (tid == 0) tally[kTallyEpi] -= clock64();  // the row's epilogue: its end less its start
       const int gid = d0 + r;
       const int dlen = __ldg(lens + gid);
       const float dlf = fmaxf(static_cast<float>(dlen), 1.0f);
       const float log_dlf = logf(dlf), sqrt_dlf = sqrtf(dlf);
-      // epilogue: lanes over the queries, model by model; a query none of
-      // whose terms is in the row takes the fast path
+      const int nm = n_match[warp];
+      // epilogue, model by model: the matched terms' scores, then lanes
+      // over the lists
       for (int m = 0; m < n_models; ++m) {
         const int md = mode[m], kind = md & 3;
         const float norm = alpha[m] + beta[m] * static_cast<float>(dlen);
         const bool zero_ok = kind != 1 || norm > 0.0f;
+        const float* wm = w + m * n_slots;
+        const unsigned* om = qown + m * qwords;
+        __syncwarp();  // the last model's sums have read the table
+        unsigned n_uses = 0;
+        for (int i = lane; i < nm; i += 32) {
+          const int t = mt[i];
+          if (zero_ok) {  // else no list reads the table; term_score at tf > 0
+            const float wf = wm[tfirst[t]], tf = static_cast<float>(wc[t] & 0xffff);
+            tb[i] = kind == 0 ? log1pf((wf * tf) / dlf)
+                    : kind == 1 ? (wf * tf) / (tf + norm) : wf * log1pf(tf);
+          }
+          n_uses += tslots[t];
+        }
+        __syncwarp();
+        unsigned n_self = 0;  // the tf > 0 slots that score themselves
         for (int qi = lane; qi < n_q; qi += 32) {
           const int p = m * n_q + qi;
-          float s;
-          if (zero_ok && !((qm[qi >> 5] >> (qi & 31)) & 1u)) {
-            s = zsum[p];
+          float s = 0.0f;
+          if (zero_ok && !((om[qi >> 5] >> (qi & 31)) & 1u)) {
+            // a slot with tf > 0 reads its term's score, one with tf = 0
+            // scores w * 0 (term_score's zero path, as w is finite and the
+            // norm positive); four slots' reads go out together, then their
+            // sum runs on in order
+            for (int l0 = 0; l0 < l_q; l0 += 4) {
+              float pt[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int x = min(l0 + j, l_q - 1) * n_q + qi;
+                const unsigned v = wc[slot_term[x]];
+                const float z = wm[x] * 0.0f, tv = tb[max(v >> 16, 1u) - 1];
+                pt[j] = v == 0 ? z : tv;
+              }
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (l0 + j < l_q) s = (l0 + j == 0) ? pt[j] : s + pt[j];
+              }
+            }
           } else {
-            const int* st = slot_term + qi * l_q;
-            const float* wq = w + m * n_slots + qi * l_q;
-            s = 0.0f;
-            for (int l = 0; l < l_q; ++l) {
-              const float tf = static_cast<float>(wc[st[l]]);
-              const float pt = term_score(kind, wq[l], tf, dlf, norm);
+            for (int l = 0; l < l_q; ++l) {  // each slot scores itself
+              const int v = wc[slot_term[l * n_q + qi]] & 0xffff;
+              n_self += v != 0;
+              const float pt = term_score(kind, wm[l * n_q + qi], static_cast<float>(v), dlf,
+                                          norm);
               s = (l == 0) ? pt : s + pt;
             }
           }
@@ -430,10 +502,17 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
             *need = 1;
           }
         }
+        n_self = __reduce_add_sync(0xffffffffu, n_self);
+        n_uses = __reduce_add_sync(0xffffffffu, n_uses);
+        if (lane == 0) {
+          tally[kTallyScores + warp] += (zero_ok ? nm : 0) + n_self;
+          tally[kTallyUses + warp] += n_uses;
+        }
       }
+      if (tid == 0) tally[kTallyEpi] += clock64();
       __syncwarp();
-      for (int i = lane; i < *n_terms; i += 32) wc[i] = 0;
-      for (int j = lane; j < qwords; j += 32) qm[j] = 0;
+      for (int i = lane; i < nm; i += 32) wc[mt[i]] = 0;
+      if (lane == 0) n_match[warp] = 0;
       __syncwarp();
     }
     since_flush += tile_docs;
@@ -445,14 +524,16 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
   }
   // the flush's last barrier has put every warp's counts in
   if (tid == 0) {
-    unsigned long long lists = 0, cands = 0;
+    unsigned long long lists = 0, cands = 0, scores = 0, uses = 0;
     for (int i = 0; i < kWarps; ++i) {
       lists += tally[i];
       cands += tally[kWarps + i];
+      scores += tally[kTallyScores + i];
+      uses += tally[kTallyUses + i];
     }
     const unsigned long long counts[kCounters] = {
         tally[kTallyNeed], tally[kTallySched], tally[kTallyRows], 1ull, lists, cands,
-        tally[kTallyCycles], clock64() - tally[kTallyStart]};
+        tally[kTallyCycles], clock64() - tally[kTallyStart], scores, uses, tally[kTallyEpi]};
 #pragma unroll
     for (int i = 0; i < kCounters; ++i) atomicAdd(&counters[i], counts[i]);
   }

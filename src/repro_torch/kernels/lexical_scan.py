@@ -16,8 +16,10 @@ model's epilogue (`scoring.apply_epilogue`) on that shared tf, and each
   (``csrc/lexical_scan.cu``) on CUDA tensors. It takes the same arguments;
   a CTA stages each tile of ``tile_d`` rows (rounded up to a whole warp)
   once for every (model, query) of the call, looks each token up once in a
-  table of the query terms, and keeps its own running lists under a
-  threshold the CTAs prove together; a second kernel merges them.
+  table of the query terms, scores each matched term once a row for all
+  the slots of a model that hold it with the same weight, and keeps its own
+  running lists under a threshold the CTAs prove together; a second kernel
+  merges them.
   ``block_d`` is how many rows a CTA scans between flushes of all its
   candidate buffers. Neither changes a bit of the result.
 
@@ -31,8 +33,10 @@ The public entry point is `repro_torch.kernels.ops.lexical_scan_topk`, which
 picks between the two by the tensors' device and counts launches.
 
 Every launch of the kernel adds its counts (`COUNTERS`: flush passes by
-cause, list flushes, candidates flushed, and one thread's cycles in flushes
-and in the whole tile loop, summed over the CTAs) into one array a device;
+cause, list flushes, candidates flushed, one thread's cycles in flushes and
+in the whole tile loop, the term scores computed and the reads of them, and
+that thread's cycles in the epilogue, summed over the CTAs) into one array
+a device;
 :func:`read_counters` returns them and zeroes them.
 """
 
@@ -183,7 +187,7 @@ def outputs_meta(q_tokens, weights, *, k: int) -> tuple[torch.Tensor, torch.Tens
 
 WARPS = 16  # the kernel's CTA: 512 threads
 MAP_BYTES = 65536 // 8  # the query terms' bitmap
-TALLY_BYTES = 8 * (2 * WARPS + 5)  # a CTA's counts (the kernel's kTally)
+TALLY_BYTES = 8 * (4 * WARPS + 6)  # a CTA's counts (the kernel's kTally)
 
 
 def _buf_bytes(tile_docs: int, row_bytes: int) -> int:
@@ -198,13 +202,17 @@ def row_bytes(l_d: int, pack_spec: PackSpec | None = None) -> int:
     return l_d * (4 if pack_spec is None else pack_spec.packed_dtype().itemsize)
 
 
-def _smem_bytes(n_models: int, n_q: int, l_q: int, tile_docs: int, row_b: int, cap: int) -> int:
+def _smem_bytes(n_models: int, n_q: int, l_q: int, tile_docs: int, row_b: int, cap: int,
+                l_tok: int) -> int:
     slots, lists = n_q * l_q, n_models * n_q
     qwords = -(-n_q // 32)
+    matched = min(slots, l_tok)  # the most distinct terms a row can match
     words = (
         2 * _hash_size(slots) + slots + WARPS * slots  # term table, slot terms, counts
-        + (slots + WARPS) * qwords  # each term's queries, each warp's row's queries
-        + n_models * slots + lists + 3 * n_models  # weights, tf-0 sums, alpha/beta/mode
+        + 2 * WARPS * matched + WARPS  # each warp's matched terms, their scores, their number
+        + 2 * slots  # each term's first slot and its number of slots
+        + n_models * qwords  # the lists with a weight other than its term's first slot's
+        + n_models * slots + 3 * n_models  # weights, alpha/beta/mode
         + 4 * lists + 2  # thresholds (score, id), buffer counts, list lengths, 2 flags
     )
     # + the staging ring, each list's r-th and k-th keys (8-byte aligned),
@@ -235,11 +243,12 @@ def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int
     if n_d + tile_docs * n_sms >= 2**31:  # ids and tile starts stay int32
         raise ValueError(f"{n_d} docs exceed the kernel's int32 doc ids")
     cap = 4 * tile_docs  # a buffer is flushed when one more tile could overflow it
+    l_tok = l_d if pack_spec is None else pack_spec.length
     row_b = row_bytes(l_d, pack_spec)
     n_splits = min(n_sms, -(-n_d // tile_docs))
     n_groups = 1
     group = n_q
-    while _smem_bytes(n_models, group, l_q, tile_docs, row_b, cap) > SMEM_LIMIT:
+    while _smem_bytes(n_models, group, l_q, tile_docs, row_b, cap, l_tok) > SMEM_LIMIT:
         if group == 1:
             raise ValueError(
                 f"one query at L_q={l_q}, L_d={l_d}, tile_d={tile_d} with {n_models} models "
@@ -250,7 +259,8 @@ def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int
     return {
         "k_pad": next_pow2(k), "tile_docs": tile_docs, "cap": cap, "n_splits": n_splits, "group": group, "n_groups": n_groups, "flush_rows": block_d,
         "log2h": _hash_size(group * l_q).bit_length() - 1,
-        "smem": _smem_bytes(n_models, group, l_q, tile_docs, row_b, cap), "row_bytes": row_b,
+        "smem": _smem_bytes(n_models, group, l_q, tile_docs, row_b, cap, l_tok),
+        "row_bytes": row_b,
         "merge_smem": merge_smem_bytes(next_pow2(k), n_splits),
     }
 
@@ -263,9 +273,14 @@ LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 18 + "pp"
 # every 4th tile), because `block_d` rows were reached (a pass with several
 # causes counts under the rows, else under `need`), and the final pass (one
 # a CTA); list flushes; candidates flushed; and each CTA's thread 0's clock64
-# cycles inside flush passes and over the whole tile loop
+# cycles inside flush passes and over the whole tile loop; the term scores
+# computed with tf > 0 (one a row, model and matched term, and one a matched
+# slot of a list that scores its slots itself), their (row, list, slot)
+# uses, and thread 0's cycles from the end of a row's count to the end of
+# its offers
 COUNTERS = ("passes_need", "passes_scheduled", "passes_rows", "passes_final",
-            "list_flushes", "candidates", "flush_cycles", "loop_cycles")
+            "list_flushes", "candidates", "flush_cycles", "loop_cycles",
+            "term_scores", "term_uses", "epilogue_cycles")
 _counters: dict[torch.device, torch.Tensor] = {}
 _counters_lock = threading.Lock()
 
@@ -370,7 +385,7 @@ def lexical_scan_topk_cuda(
             o_s.data_ptr(), o_i.data_ptr(), g, l_q, n_models, n_d, l_tok, geo["row_bytes"],
             pack, bits, sentinel, k, geo["k_pad"], geo["cap"], geo["n_splits"],
             geo["tile_docs"], geo["flush_rows"], geo["log2h"],
-            _smem_bytes(n_models, g, l_q, geo["tile_docs"], geo["row_bytes"], geo["cap"]),
+            _smem_bytes(n_models, g, l_q, geo["tile_docs"], geo["row_bytes"], geo["cap"], l_tok),
             geo["merge_smem"], counters.data_ptr(), stream,
         )
         _raise_on(lib, rc, "lexical_scan launch")

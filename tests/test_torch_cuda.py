@@ -36,7 +36,10 @@ wrapper's bits, no corpus-sized allocation a block); the ragged bag and
 the reduced GNN in every regime repeat their bytes on the card, and the GNN
 holds to the CPU (float64 within 1e-5, float32 logits within 2e-4 / 2e-5).
 The lexical kernel's counters move on every launch and zero when read, and
-a traced session's block carries its own launch's counts.
+a traced session's block carries its own launch's counts; its term scores,
+shared by the slots that hold a term with the same weight's bits, keep the
+plain version's bits in every token layout, and the term counters count
+what the inputs say they must.
 ``chip_smoke.py`` makes the same checks at the full width.
 """
 
@@ -135,6 +138,134 @@ def test_cuda_lexical_scan_counters():
         assert got["candidates"] >= len(grid) * 7 * min(k, n_d), got
         assert got["list_flushes"] >= len(grid) * 7, got
         assert 0 < got["flush_cycles"] <= got["loop_cycles"], got
+        assert 0 < got["epilogue_cycles"] <= got["loop_cycles"], got
+        assert got["term_uses"] >= got["term_scores"], got
+
+
+# the token layouts the kernel stages: int32 rows, uint8 and uint16 rows, bit-planes
+PACKS = (None, "8", "16", "bitpack")
+
+
+def _term_counts(q, toks, lens, w, ab, modes):
+    """The term counters one launch adds. For each row and model: one use a
+    matched slot; one score a distinct matched term, and one more a matched
+    slot of each list that holds a weight that is not finite or whose bits
+    differ from its term's first slot's (slots taken l-major, as the kernel
+    lays them out); but where a bm25 norm is not positive, one score a
+    matched slot and none for the terms."""
+    n_q, l_q = q.shape
+    flat = np.where(q == scoring.PAD_TOKEN, scoring.PAD_TOKEN - 1, q).T.ravel()
+    wt = w.cpu().numpy().astype(np.float32).transpose(0, 2, 1).reshape(w.shape[0], -1)
+    bits = wt.view(np.uint32)
+    first = np.array([np.flatnonzero(flat == t)[0] for t in flat])
+    apart = (bits != bits[:, first]) | ~np.isfinite(wt)
+    self_slots = np.tile(apart.reshape(w.shape[0], l_q, n_q).any(axis=1), (1, l_q))
+    ab = ab.cpu().numpy().astype(np.float32)
+    bm25 = np.array([m.mode == "bm25" for m in modes])
+    scores = uses = 0
+    for row, dlen in zip(toks, lens):
+        hit = np.isin(flat, row)
+        n_hit, n_terms = int(hit.sum()), len(set(flat[hit].tolist()))
+        norm_ok = ~bm25 | (ab[:, 0] + ab[:, 1] * np.float32(dlen) > 0)
+        scores += int(np.where(norm_ok, n_terms + self_slots[:, hit].sum(axis=1), n_hit).sum())
+        uses += w.shape[0] * n_hit
+    return scores, uses
+
+
+def _every_layout(q, toks, lens, w, ab, modes, vocab, k=40, block_d=1024, tile_d=16):
+    """The kernel in each token layout (`PACKS`) against the plain version,
+    to the bit; its counters agree across layouts and with `_term_counts`.
+    Returns the counters of one launch."""
+    dev = _card()
+    n_d, l_d = toks.shape
+    geo = lexical_scan.launch_geometry(w.shape[0], q.shape[0], q.shape[1], n_d, l_d, k, block_d,
+                                       tile_d)
+    assert geo["n_groups"] == 1  # one launch: `_term_counts` counts one query group
+    d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
+    w, ab = w.to(dev), ab.to(dev)
+    ws, wi = lexical_scan.lexical_scan_topk_ref(qt, w, ab, d, dl, modes=modes, k=k,
+                                                block_d=block_d, tile_d=tile_d)
+    want = _term_counts(q, toks, lens, w, ab, modes)
+    lexical_scan.read_counters(dev)  # what earlier launches left
+    for mode in PACKS:
+        spec = None if mode is None else packing.make_spec(vocab, l_d, mode)
+        tok = d if spec is None else torch.as_tensor(packing.pack_tokens(toks, spec), device=dev)
+        ks, ki = ops.lexical_scan_topk(qt, w, ab, tok, dl, modes=modes, k=k, block_d=block_d,
+                                       tile_d=tile_d, pack_spec=spec)
+        got = lexical_scan.read_counters(dev)
+        assert torch.equal(ki, wi), mode
+        assert torch.equal(ks.view(torch.int32), ws.view(torch.int32)), mode
+        assert (got["term_scores"], got["term_uses"]) == want, (mode, got, want)
+        assert 0 < got["epilogue_cycles"] <= got["loop_cycles"], (mode, got)
+    return got
+
+
+def _frequent(toks) -> int:
+    return int(np.bincount(toks[toks >= 0]).argmax())
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_shares_a_term_of_every_query():
+    """All 64 queries hold the corpus's most frequent term, a third of them
+    twice: one score of it a row and model serves every slot that holds it."""
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    q, toks, lens = _lexical_inputs(960, 4096, 64, 64, 8, 200, 256)
+    q[:, 0] = q[::3, 1] = _frequent(toks)
+    stats = anchors.collection_stats(torch.tensor(toks), torch.tensor(lens), 200, chunk_size=4096)
+    modes, w, ab = scoring.lexical_epilogues(grid, torch.tensor(q), stats)
+    got = _every_layout(q, toks, lens, w, ab, modes, 200)
+    assert got["term_uses"] > 2 * got["term_scores"], got
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_scores_a_term_apart_where_its_weight_differs():
+    """The same term with other weights in some queries (hand-made: scaled
+    up and down, +0 against -0) scores apart from its first slot's weight;
+    the slots that keep that weight share its score."""
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    q, toks, lens = _lexical_inputs(961, 2048, 48, 32, 4, 200, 64)
+    common = _frequent(toks)
+    q[:4, 0] = q[1, 2] = common
+    q[6, 0] = q[7, 0] = q[8, 1] = (common + 1) % 200
+    stats = anchors.collection_stats(torch.tensor(toks), torch.tensor(lens), 200, chunk_size=2048)
+    modes, w, ab = scoring.lexical_epilogues(grid, torch.tensor(q), stats)
+    w = w.clone()
+    w[:, 1, 0] *= 1.5
+    w[:, 2, 0] *= 0.5
+    w[:, 1, 2] = w[:, 0, 0]
+    w[:, 6, 0], w[:, 7, 0], w[:, 8, 1] = 0.0, -0.0, 0.0
+    got = _every_layout(q, toks, lens, w, ab, modes, 200)
+    assert got["term_uses"] > got["term_scores"] > 0, got
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_shares_terms_across_a_mixed_grid():
+    """ql, bm25 and tf-idf models in one call, one bm25 with a norm that is
+    negative for rows under 20 tokens (where its zero path takes the general
+    expression, so every list of the row scores each slot itself)."""
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    q, toks, lens = _lexical_inputs(962, 4096, 40, 48, 6, 150, 128)
+    q[::2, 0] = _frequent(toks)
+    stats = anchors.collection_stats(torch.tensor(toks), torch.tensor(lens), 150, chunk_size=4096)
+    modes, w, ab = scoring.lexical_epilogues(grid, torch.tensor(q), stats)
+    assert [m.mode for m in modes] == ["ql", "ql", "bm25", "bm25", "tfidf"]
+    ab = ab.clone()
+    ab[3] = torch.tensor([-0.3, 1.0 / 64])  # never 0 nor -tf: -0.3 is no multiple of 1/64
+    got = _every_layout(q, toks, lens, w, ab, modes, 150)
+    assert got["term_uses"] > got["term_scores"], got
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_with_no_shared_term_scores_each_slot():
+    """Queries whose 128 terms are all distinct: one score a matched slot,
+    as many as scoring each slot on its own."""
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    _, toks, lens = _lexical_inputs(963, 4096, 64, 1, 1, 200, 64)
+    q = np.random.default_rng(963).permutation(200)[:128].reshape(32, 4).astype(np.int32)
+    stats = anchors.collection_stats(torch.tensor(toks), torch.tensor(lens), 200, chunk_size=4096)
+    modes, w, ab = scoring.lexical_epilogues(grid, torch.tensor(q), stats)
+    got = _every_layout(q, toks, lens, w, ab, modes, 200)
+    assert got["term_uses"] == got["term_scores"] > 0, got
 
 
 @pytest.mark.cuda

@@ -199,6 +199,36 @@ def test_the_counters_name_each_of_the_kernels_counts():
     assert lexical_scan.read_counters("cpu") == dict.fromkeys(lexical_scan.COUNTERS, 0)
 
 
+def test_the_counters_keep_their_first_eight_in_order():
+    """The term-score and epilogue counters come after the flush counters,
+    whose names and places readers already know."""
+    assert lexical_scan.COUNTERS[:8] == (
+        "passes_need", "passes_scheduled", "passes_rows", "passes_final", "list_flushes",
+        "candidates", "flush_cycles", "loop_cycles")
+    assert lexical_scan.COUNTERS[8:] == ("term_scores", "term_uses", "epilogue_cycles")
+
+
+@pytest.mark.parametrize("shape, most_groups", [
+    pytest.param(shape, most, id="x".join(map(str, shape))) for shape, most in (
+        ((1, 64, 8), (1, 1)), ((5, 64, 4), (1, 1)), ((1, 128, 4), (1, 1)),
+        ((1, 2500, 4), (9, 9)), ((1, 5000, 4), (18, 17)))
+])
+def test_the_term_table_keeps_one_query_group(shape, most_groups):
+    """Each warp's matched terms and their scores fit beside the rest: a
+    serving block (64 x 8, 128 x 4, one model) and a mirex-8M segment's 5
+    models x 64 x 4 stay one query group with tile_d 16, unpacked and in
+    mirex's 17-bit planes. Fig. 2's scans (2,500 and 5,000 queries) take no
+    more groups, and so read the corpus no more often, than the per-term
+    query masks the table replaced left room for."""
+    n_models, n_q, l_q = shape
+    spec = packing.make_spec(65_536, 128, "auto")
+    for most, (l_d, pack_spec) in zip(most_groups, ((128, None), (spec.packed_width, spec))):
+        geo = lexical_scan.launch_geometry(n_models, n_q, l_q, 1 << 22, l_d, 1000, 16_384, 16,
+                                           pack_spec=pack_spec)
+        assert geo["n_groups"] <= most and geo["group"] * geo["n_groups"] >= n_q
+        assert geo["smem"] <= lexical_scan.SMEM_LIMIT
+
+
 def test_wrapper_checks_its_arguments():
     q = torch.zeros((2, 3), dtype=torch.int32)
     w = torch.zeros((1, 2, 3))
