@@ -1,16 +1,23 @@
 """portbench: the benchmark of the PyTorch/CUDA port (`repro_torch`).
 
 One command runs one cell once (see `run.py`). Everything that belongs to
-one configuration, traffic mix, per-layer metric or kernel cost sits in a
-file of its own, found by the name `BENCHMARK.json` gives it:
+one configuration, traffic mix, driver, per-layer metric or kernel cost
+sits in a file of its own, found by the name `BENCHMARK.json` gives it, so
+a cell of any driver joins from new files and entries alone:
 
-* ``configs/<config>.json``  the deployment's sizes, source and cuts;
+* ``configs/<config>.json``  the deployment's or model's sizes, source and cuts;
 * ``mixes/<mix>.json``       the traffic's parameters and the limits of the
-                             correctness check, run by ``drivers/<driver>.py``;
+                             correctness check, exactly the names its
+                             driver's ``LIMITS`` declares;
+* ``drivers/<driver>.py``    set-up, the window, the check (``LIMITS``);
 * ``metrics/<metric>.py``    one per-layer reader over a traced run;
-* ``costs/<kernel>.py``      a kernel's frozen byte and operation count.
+* ``costs/<kernel>.py``      a kernel's frozen byte and operation count
+                             (``bound_s``), or a model step's (``flops``).
 
-The generators (``gen/``), the plain reference (``reference/``), the peaks
-(``peaks.json``) and the comparison (``lib/judge.py``) are the yardstick:
-nothing under ``reference/`` imports the program.
+The generators (``gen/``), the plain references (``reference/``), the
+peaks (``peaks.json``: the H100's HBM, INT32, tensor-core and FP32 rates),
+the readers' arithmetic (``lib/readers.py``: ``roofline_share`` for
+``<kernel>_roofline`` metrics, ``mfu_share`` for ``<model>.mfu`` metrics)
+and the comparisons (``lib/judge.py``) are the yardstick: nothing under
+``reference/`` imports the program.
 """

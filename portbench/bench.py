@@ -27,6 +27,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 from portbench.lib import devtrace, registry
 
@@ -55,6 +56,7 @@ class TracedRun:
     spans: list  # the program's spans (`repro_torch.obs.SpanEvent`), monotonic clock
     device: devtrace.DeviceRead | None
     peaks: dict
+    root: Path = registry.ROOT  # where the readers find ``costs/``
 
 
 @dataclasses.dataclass
@@ -130,7 +132,7 @@ def run_cell(cell: registry.Cell, *, seed: int, seconds: float, trace: bool, dev
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:
         run = TracedRun(cell.config, cell.mix, win, tracer.events(), dev,
-                        registry.read_json(root / "peaks.json"))
+                        registry.read_json(root / "peaks.json"), root)
         for m in cell.per_layer:
             value = registry.load_module("metrics", m["name"], root).read(run)
             if value is not None:

@@ -20,9 +20,9 @@ submitted when the block is done: that lateness (due time to
 every admitted request is answered, at most ``answer_wait_s`` past the
 close; what is still unanswered, or was refused, has failed.
 
-The check draws ``check_requests`` answered requests from the seed and
-judges each one's top k against `reference/`, and the statistics the
-program handed the session.
+The check (`lib/lexserve.py`) draws ``check_requests`` answered requests
+from the seed and judges each one's top k against `reference/`, and the
+statistics the program handed the session, by the mix's `LIMITS`.
 """
 
 from __future__ import annotations
@@ -34,9 +34,10 @@ import numpy as np
 import torch
 
 from portbench.bench import Window
-from portbench.gen import arrivals, corpus as gcorpus, queries as gqueries, sub_seed
-from portbench.lib.judge import Reading, stats_diff, topk_gaps
-from portbench.reference import lexical as ref
+from portbench.gen import arrivals, corpus as gcorpus, queries as gqueries
+from portbench.lib import lexserve
+
+LIMITS = lexserve.LIMITS
 
 
 @dataclasses.dataclass
@@ -129,42 +130,17 @@ class State:
 
 
 def setup(cell, seed: int, seconds: float, device, parts: dict) -> State:
-    from repro_torch.core import anchors
-    from repro_torch.serve.service import RetrievalService
-    from repro_torch.serve.session import LexicalSession
-
     cfg, mix = cell.config, cell.mix
     t = time.monotonic()
     tokens, lengths = gcorpus.make_corpus(cfg, seed=seed, device=device)
     due = arrivals.schedule(mix, seconds, seed)
     queries = gqueries.make_queries(tokens, lengths, n=len(due), hist=cfg["query_len_hist"],
                                     max_q_len=cfg["max_q_len"], seed=seed)
-    warm = gqueries.make_queries(tokens, lengths, n=sum(mix["warm_buckets"]),
-                                 hist=cfg["query_len_hist"], max_q_len=cfg["max_q_len"],
-                                 seed=seed, stream="warm")
+    warm = lexserve.warm_queries(tokens, lengths, cfg, mix, seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     parts["data_s"] = time.monotonic() - t
-    t = time.monotonic()
-    stats = anchors.collection_stats(tokens, lengths, vocab=cfg["vocab"],
-                                     chunk_size=min(cfg["chunk_size"], cfg["n_docs"]))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    parts["stats_s"] = time.monotonic() - t
-    t = time.monotonic()
-    session = LexicalSession(tokens, lengths, "ql_lm", k=cfg["k"], chunk_size=cfg["chunk_size"],
-                             stats=stats, vocab=cfg["vocab"], token_pack="none", device=device)
-    service = RetrievalService({"lexical": session}, max_batch=cfg["serve_max_batch"],
-                               max_delay=cfg["serve_max_delay_s"])
-    warm = warm.cpu().numpy()
-    at = 0
-    for size in mix["warm_buckets"]:  # one block of each padding bucket
-        for row in warm[at:at + size]:
-            service.submit(row)
-        at += size
-        service.drain()
-    service.metrics.clear()
-    parts["warmup_s"] = time.monotonic() - t
+    service, stats = lexserve.resident_service(cfg, mix, tokens, lengths, warm, device, parts)
     return State(cfg, mix, seed, device, tokens, lengths, queries, due, service=service,
                  stats=stats)
 
@@ -194,10 +170,7 @@ def run_window(state: State, seconds: float) -> Window:
 
 
 def release(state: State) -> None:
-    st = state.stats
-    state.prog_stats = {"cf": st.cf.cpu().numpy(), "df": st.df.cpu().numpy(),
-                        "total": int(st.total_terms), "n_docs": int(st.n_docs),
-                        "avg": float(st.avg_doc_len)}
+    state.prog_stats = lexserve.program_stats(state.stats)
     state.service = state.stats = None
 
 
@@ -206,39 +179,10 @@ def cleanup(state: State) -> None:
 
 
 def check(state: State, win: Window, *, control: bool = False) -> list:
-    """The readings. ``control``: the reference in bfloat16 takes the
-    program's place."""
-    cfg, limits = state.cfg, state.mix["limits"]
-    answered = np.array(sorted(state.served.answers), np.int64)
-    rng = np.random.default_rng(sub_seed(state.seed, "check"))
-    pick = np.sort(rng.choice(answered, min(state.mix["check_requests"], len(answered)),
-                              replace=False))
-    queries = state.queries[torch.as_tensor(pick, device=state.device)]
-    ql = cfg["ql_lm"]
-    models = [ref.Model("ql", lam=ql["lam"], length_prior=ql["length_prior"])]
-    st = ref.collection_stats(state.tokens, state.lengths, cfg["vocab"])
-    want_stats = {"cf": st.cf.cpu().numpy(), "df": st.df.cpu().numpy(), "total": st.total,
-                  "n_docs": st.n_docs, "avg": float(st.avg)}
-    if control:
-        cst = ref.collection_stats(state.tokens, state.lengths, cfg["vocab"],
-                                   dtype=torch.bfloat16)
-        got_stats = {"cf": cst.cf.cpu().numpy(), "df": cst.df.cpu().numpy(),
-                     "total": cst.total, "n_docs": cst.n_docs, "avg": float(cst.avg)}
-        s, ids = ref.topk(state.tokens, state.lengths, queries, models, cst, cfg["k"],
-                          dtype=torch.bfloat16)
-        got_ids, got_s = ids.cpu().numpy(), s.cpu().numpy().astype(np.float64)
-    else:
-        got_stats = state.prog_stats
-        got_ids = np.stack([state.served.answers[j].ids for j in pick])[None].astype(np.int64)
-        got_s = np.stack([state.served.answers[j].scores for j in pick])[None].astype(np.float64)
-    want_s, _ = ref.topk(state.tokens, state.lengths, queries, models, st, cfg["k"])
-    want_of_got = ref.score_docs(state.tokens, state.lengths, queries, models, st,
-                                 torch.as_tensor(got_ids, device=state.device))
-    score_gap, rank_gap = topk_gaps(got_ids, got_s, want_s.cpu().numpy(),
-                                    want_of_got.cpu().numpy(), cfg["n_docs"])
-    return [
-        Reading("stats_diff", stats_diff(got_stats, want_stats), limits["stats_diff"]),
-        Reading("score_gap", score_gap, limits["score_gap"]),
-        Reading("rank_gap", rank_gap, limits["rank_gap"]),
-        Reading("unanswered", win.failed, 0),
-    ]
+    """The readings (`lib/lexserve.check`). ``control``: the reference in
+    bfloat16 takes the program's place."""
+    return lexserve.check(
+        cfg=state.cfg, mix=state.mix, seed=state.seed, tokens=state.tokens,
+        lengths=state.lengths, answers=state.served.answers,
+        query_of=lambda pick: state.queries[torch.as_tensor(pick, device=state.device)],
+        prog_stats=state.prog_stats, failed=win.failed, control=control)

@@ -8,7 +8,9 @@ import dataclasses
 from portbench.lib import registry
 
 SMALL_CONFIG = {"n_docs": 4096, "max_doc_len": 32, "vocab": 2048, "chunk_size": 512, "k": 50}
-SMALL_MIX = {"rate_qps": 200, "check_requests": 16}
+# every answer kept, and at most 1,024 checked: every one that the plain
+# scan answers at this size, so that a fault in one answer of a block shows
+SMALL_MIX = {"rate_qps": 200, "check_requests": 1024, "keep_answers": 1.0}
 
 
 def small(cell: registry.Cell) -> registry.Cell:

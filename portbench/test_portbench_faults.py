@@ -14,6 +14,7 @@ from portbench.lib import registry
 from portbench.lib.smallcell import small
 
 SERVE = "cw09b-serve-steady"
+CELLS = [SERVE, "cw09b-serve-mqbatch"]
 
 
 def run(name: str, seed: int = 2**31 + 17, seconds: float = 0.3):
@@ -23,7 +24,7 @@ def run(name: str, seed: int = 2**31 + 17, seconds: float = 0.3):
     return out.result
 
 
-@pytest.mark.parametrize("name", [SERVE])
+@pytest.mark.parametrize("name", CELLS)
 def test_sound_run_is_correct(name):
     r = run(name)
     assert r["correct"], r["check"]
@@ -31,7 +32,7 @@ def test_sound_run_is_correct(name):
     assert list(r)[-1] == "check"
 
 
-@pytest.mark.parametrize("name", [SERVE])
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("seed", [3, 4, 5])
 def test_control_fails(name, seed):
     cell = small(registry.resolve(name))
@@ -75,7 +76,7 @@ def _answer_altered(scores, ids):
     return scores, ids
 
 
-@pytest.mark.parametrize("name", [SERVE])
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("alter", [_half_left_out, _answer_altered])
 def test_kernel_fault_fails(monkeypatch, name, alter):
     _wrap_kernel(monkeypatch, alter)
@@ -83,7 +84,8 @@ def test_kernel_fault_fails(monkeypatch, name, alter):
 
 
 
-def test_serve_block_returning_its_state_fails(monkeypatch):
+@pytest.mark.parametrize("name", CELLS)
+def test_serve_block_returning_its_state_fails(monkeypatch, name):
     from repro_torch.core import topk
     from repro_torch.serve import session
 
@@ -93,12 +95,12 @@ def test_serve_block_returning_its_state_fails(monkeypatch):
                               ids=torch.full((n, k), -1, dtype=torch.int32))
 
     monkeypatch.setattr(session.LexicalSession, "search", unchanged)
-    r = run(SERVE)
+    r = run(name)
     assert not r["correct"]
 
 
 
-@pytest.mark.parametrize("name", [SERVE])
+@pytest.mark.parametrize("name", CELLS)
 def test_stats_altered_fails(monkeypatch, name):
     from repro_torch.core import anchors
 
