@@ -9,7 +9,12 @@ a cell of any driver joins from new files and entries alone:
 * ``mixes/<mix>.json``       the traffic's parameters and the limits of the
                              correctness check, exactly the names its
                              driver's ``LIMITS`` declares;
-* ``drivers/<driver>.py``    set-up, the window, the check (``LIMITS``);
+* ``drivers/<driver>.py``    set-up, the window, the check (``LIMITS``), and
+                             ``SMALL``: the keys of its cells' configuration
+                             and mix, with their values, that cut a cell to a
+                             size the CPU tests run in a second
+                             (`lib/smallcell.py`; every key must be one the
+                             cell holds);
 * ``metrics/<metric>.py``    one per-layer reader over a traced run;
 * ``costs/<kernel>.py``      a kernel's frozen byte and operation count
                              (``bound_s``), or a model step's (``flops``).

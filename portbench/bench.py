@@ -92,10 +92,11 @@ def _power_limit() -> str:
 
 
 def run_cell(cell: registry.Cell, *, seed: int, seconds: float, trace: bool, device,
-             t_start: float, root=registry.ROOT) -> Outcome:
+             t_start: float) -> Outcome:
     import torch
     from repro_torch import obs
 
+    root = cell.root
     driver = registry.load_module("drivers", cell.mix["driver"], root)
     io0 = _disk_io()
     parts: dict = {}

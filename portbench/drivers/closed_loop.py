@@ -37,6 +37,8 @@ from portbench.gen import corpus as gcorpus, queries as gqueries
 from portbench.lib import lexserve
 
 LIMITS = lexserve.LIMITS
+# every answer kept for the check
+SMALL = {"config": lexserve.SMALL["config"], "mix": dict(lexserve.SMALL["mix"], keep_answers=1.0)}
 
 
 @dataclasses.dataclass

@@ -38,6 +38,8 @@ from portbench.gen import arrivals, corpus as gcorpus, queries as gqueries
 from portbench.lib import lexserve
 
 LIMITS = lexserve.LIMITS
+# at the CPU's size, a rate that one thread answers
+SMALL = {"config": lexserve.SMALL["config"], "mix": dict(lexserve.SMALL["mix"], rate_qps=200)}
 
 
 @dataclasses.dataclass

@@ -20,6 +20,11 @@ from portbench.lib.judge import Reading, stats_diff, topk_gaps
 from portbench.reference import lexical as ref
 
 LIMITS = ("stats_diff", "score_gap", "rank_gap")
+# the size the CPU tests cut a lexical cell to: a few thousand short
+# documents, and up to 1,024 answers checked, every one that the plain scan
+# answers there, so that a fault in one answer of a block shows
+SMALL = {"config": {"n_docs": 4096, "max_doc_len": 32, "vocab": 2048, "chunk_size": 512, "k": 50},
+         "mix": {"check_requests": 1024}}
 
 
 def warm_queries(tokens, lengths, cfg: dict, mix: dict, seed: int) -> torch.Tensor:

@@ -21,6 +21,7 @@ class Cell:
     chips: int
     end_to_end: tuple  # BENCHMARK.json entries this cell reports with --trace 0
     per_layer: tuple  # ... and with --trace 1
+    root: Path = ROOT  # the harness whose drivers, readers and costs the cell runs
 
 
 def load_benchmark(path: Path | None = None) -> dict:
@@ -73,4 +74,4 @@ def resolve(workload: str, bench: dict | None = None, root: Path = ROOT) -> Cell
         m for m in bench["per_layer"]
         if workload in m.get("workloads", [workload] if m["moves"] in reported else []))
     return Cell(workload, load_config(w["config"], bench, root), load_mix(w["traffic"], root),
-                int(w["chips"]), e2e, per_layer)
+                int(w["chips"]), e2e, per_layer, root)

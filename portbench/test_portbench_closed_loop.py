@@ -4,6 +4,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -16,15 +18,40 @@ drv = registry.load_module("drivers", "closed_loop")
 CELL = "cw09b-serve-mqbatch"
 
 
-def test_the_small_cell_keeps_its_blocks_full():
+class Timed:
+    """The small cell's real session, each block taking ``block_s`` on the
+    fake clock, so that how many blocks a window holds is the same on any
+    CPU, however loaded."""
+
+    def __init__(self, session, clock, block_s):
+        self.session, self.clock, self.block_s = session, clock, block_s
+        self.pad_value = session.pad_value
+
+    def search(self, q_block):
+        out = self.session.search(q_block)
+        self.clock.t += self.block_s
+        return out
+
+
+def test_the_small_cell_keeps_its_blocks_full(monkeypatch):
+    from repro_torch.serve.service import RetrievalService
+
     cell = small(registry.resolve(CELL))
-    mix, seconds = cell.mix, 0.8
+    cfg, mix, seconds = cell.config, cell.mix, 0.8
     state = drv.setup(cell, 2**31 + 31, seconds, torch.device("cpu"), {})
     try:
+        # the service at the configuration's knobs, over the set-up's session
+        # on a fake clock: blocks of 0.25 s, three answered inside the window
+        clock = Clock()
+        state.service = RetrievalService(
+            {"lexical": Timed(state.service.sessions["lexical"], clock, 0.25)},
+            max_batch=cfg["serve_max_batch"], max_delay=cfg["serve_max_delay_s"], clock=clock)
+        monkeypatch.setattr(drv, "drive", functools.partial(drv.drive, clock=clock,
+                                                            sleep=clock.sleep))
         win = drv.run_window(state, seconds)
     finally:
         drv.cleanup(state)
-    served, n, block = state.served, mix["outstanding"], cell.config["serve_max_batch"]
+    served, n, block = state.served, mix["outstanding"], cfg["serve_max_batch"]
     records = win.records
     assert n == 256 and n % block == 0
     assert all(r.n_real == r.n_padded == block and r.trigger == "size" for r in records)
@@ -37,6 +64,7 @@ def test_the_small_cell_keeps_its_blocks_full():
     assert served.in_flight == [n] * (inside + 1) + [n - block * i for i in (1, 2, 3)]
     assert len(served.submit) == n + block * inside and win.failed == 0
     assert win.e2e["served_qps"] == served.answered_by(seconds) / seconds
+    assert inside == 3 and len(served.answers) == len(served.submit)
 
 
 def serve(n_pool, *, outstanding=4, block_s=0.010, close_s=0.1, wait_s=1.0, max_batch=2):

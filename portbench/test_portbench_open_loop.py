@@ -92,3 +92,28 @@ def test_queue_wait_and_lateness_are_read_apart():
     assert drv.queue_wait_mean_ms(service.metrics) == pytest.approx((1 + 5 + 5) / 3)
     np.testing.assert_allclose(drv.late_ms(served), [0.0, 0.0, 9.0, 0.0], atol=1e-6)
     assert drv.queue_wait_mean_ms([]) is None
+
+
+def test_burst_arrivals_keep_each_phase_at_its_rate():
+    """A burst schedule at 1,120/s, factor 4, duty 0.25: 4,480/s in the
+    first quarter of each second and 56/s in the rest, each burst starting
+    on time (its first arrival 1/4,480 s in on average, not a floor-rate
+    gap late), sorted, and a longer draw of one seed beginning with the
+    shorter one."""
+    from portbench.gen import arrivals
+
+    t = arrivals.burst_schedule(1120.0, 120_000, seed=2**31 + 41, burst_factor=4.0, duty=0.25)
+    periods = int(t[-1])
+    t = t[t < periods]
+    phase = t % 1.0
+    assert np.all(np.diff(t) >= 0)
+    assert (phase < 0.25).sum() / periods == pytest.approx(4480 * 0.25, rel=0.02)
+    assert (phase >= 0.25).sum() / periods == pytest.approx(56 * 0.75, rel=0.06)
+    first = [phase[(t >= k) & (t < k + 0.25)].min() for k in range(periods)]
+    assert np.mean(first) < 1e-3
+    short = arrivals.burst_schedule(1120.0, 1000, seed=2**31 + 41)
+    np.testing.assert_array_equal(short, t[:1000])
+    mix = dict(registry.load_mix("serve-steady"), arrivals="burst", burst_factor=4, duty=0.25,
+               period_s=1.0)
+    due = arrivals.schedule(mix, 51.0, 2**31 + 43)
+    assert due.max() < 51.0 and len(due) / 51.0 == pytest.approx(1162.0, rel=0.02)

@@ -44,8 +44,10 @@ def test_config_resolves(entry):
 
 def assert_cell_resolves(w, bench=BENCH, root=registry.ROOT) -> registry.Cell:
     """A cell's entry keeps to the contract's shape, its files resolve, its
-    driver has the harness's five steps, and its mix holds exactly the
-    limits its driver's check compares against (``LIMITS``)."""
+    driver has the harness's five steps, its mix holds exactly the limits
+    its driver's check compares against (``LIMITS``), and the driver's CPU
+    size (``SMALL``) cuts only keys that the cell's configuration and mix
+    hold."""
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(w["name"]) and w["chips"] in (1, 4) and len(w["why"]) <= 200
     cell = registry.resolve(w["name"], bench, root)
@@ -55,6 +57,10 @@ def assert_cell_resolves(w, bench=BENCH, root=registry.ROOT) -> registry.Cell:
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and cell.per_layer
     assert set(cell.mix["limits"]) == set(driver.LIMITS)
+    assert hasattr(driver, "SMALL"), f"driver {cell.mix['driver']!r} declares no SMALL"
+    assert set(driver.SMALL) == {"config", "mix"}
+    assert set(driver.SMALL["config"]) <= set(cell.config), driver.SMALL["config"]
+    assert set(driver.SMALL["mix"]) <= set(cell.mix), driver.SMALL["mix"]
     return cell
 
 
@@ -87,6 +93,25 @@ def test_cell_resolves(w):
 @pytest.mark.parametrize("m", BENCH["end_to_end"] + BENCH["per_layer"], ids=lambda m: m["name"])
 def test_metric_resolves(m):
     assert_metric_resolves(m)
+
+
+# the size every lexical cell is cut to on the CPU, and the rule it is laid
+# over a cell by: each key that the cell's configuration or mix holds
+LEXICAL_CONFIG = {"n_docs": 4096, "max_doc_len": 32, "vocab": 2048, "chunk_size": 512, "k": 50}
+LEXICAL_MIX = {"rate_qps": 200, "check_requests": 1024, "keep_answers": 1.0}
+
+
+@pytest.mark.parametrize("name", ["cw09b-serve-steady", "cw09b-serve-mqbatch"])
+def test_a_lexical_small_cell_keeps_its_size(name):
+    """Each lexical driver's ``SMALL`` cuts its cells to the lexical CPU
+    size, dict for dict; nothing else of the cell changes."""
+    cell = registry.resolve(name)
+    cut = small(cell)
+    assert cut.config == dict(cell.config, **{k: v for k, v in LEXICAL_CONFIG.items()
+                                              if k in cell.config})
+    assert cut.mix == dict(cell.mix, **{k: v for k, v in LEXICAL_MIX.items() if k in cell.mix})
+    assert (cut.name, cut.chips, cut.end_to_end, cut.per_layer, cut.root) == (
+        cell.name, cell.chips, cell.end_to_end, cell.per_layer, cell.root)
 
 
 @pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
@@ -140,18 +165,17 @@ def test_cell_added_from_new_files_alone(tmp_path):
     assert [m["name"] for m in cell.per_layer] == ["service.batches.burst"]
     for trace in (False, True):
         out = bench.run_cell(cell, seed=11, seconds=0.5, trace=trace,
-                             device=torch.device("cpu"), t_start=time.monotonic(), root=root)
+                             device=torch.device("cpu"), t_start=time.monotonic())
         assert out.result["correct"], out.result
         want = {"query_p50_ms", "query_p95_ms", "setup_s"} if not trace else {
             "service.batches.burst"}
         assert set(out.result["metrics"]) == want
 
 
-
 TOY_FILES = {
     "configs/toy-mlp.json": json.dumps({
         "name": "toy-mlp", "source": "https://example.org/toy-mlp", "reduced": [],
-        "dtype": "fp32", "d_model": 64, "d_hidden": 128, "vocab": 256}),
+        "dtype": "fp32", "d_model": 16384, "d_hidden": 65536, "vocab": 262144}),
     "mixes/toy-decode.json": json.dumps({
         "driver": "toy_decode", "batch": 8, "limits": {"logit_gap": 1e-4}}),
     "costs/toy_mlp.py": (
@@ -182,6 +206,7 @@ from portbench.lib.judge import Reading
 from repro_torch import obs
 
 LIMITS = ("logit_gap",)
+SMALL = {"config": {"d_model": 64, "d_hidden": 128, "vocab": 256}, "mix": {}}
 
 
 @dataclasses.dataclass
@@ -260,10 +285,14 @@ def _with_toy_cell(root: Path) -> dict:
 
 
 def test_cell_of_another_driver_added_from_new_files_alone(tmp_path, monkeypatch):
-    """A cell that is not lexical (its own driver, limits, reference, cost
-    and ``mfu`` reader) joins from new files and entries alone, passes the
-    rules of `test_cell_resolves` and `test_metric_resolves`, runs correct
-    on the CPU untraced and traced, and a planted fault fails its check."""
+    """A cell that is not lexical (its own driver, limits, CPU size,
+    reference, cost and ``mfu`` reader), stated at a size that no CPU worker
+    could build (73 GB of float32 weights), joins from new files and entries
+    alone and passes the rules of `test_cell_resolves` and
+    `test_metric_resolves`. Cut to its driver's ``SMALL`` it runs correct on
+    the CPU untraced and traced, each run in under 5 s, and a planted fault
+    fails its check. A copy whose driver declares no ``SMALL`` fails both
+    ``small()`` and `assert_cell_resolves`."""
     root = tmp_path / "portbench"
     shutil.copytree(registry.ROOT, root, ignore=shutil.ignore_patterns("__pycache__"))
     before = _digests(root)
@@ -271,13 +300,19 @@ def test_cell_of_another_driver_added_from_new_files_alone(tmp_path, monkeypatch
     after = _digests(root)
     assert {k: v for k, v in after.items() if k in before} == before
     assert set(after) - set(before) == set(TOY_FILES)
-    cell = assert_cell_resolves(TOY_CELL, bench_json, root)
+    stated = assert_cell_resolves(TOY_CELL, bench_json, root)
     for m in bench_json["end_to_end"] + bench_json["per_layer"]:
         assert_metric_resolves(m, bench_json, root)
-    assert [m["name"] for m in cell.per_layer] == ["toy_mlp.mfu.decode"]
+    assert [m["name"] for m in stated.per_layer] == ["toy_mlp.mfu.decode"]
+    cfg = stated.config
+    assert 4 * (cfg["d_model"] * cfg["d_hidden"] + cfg["d_hidden"] * cfg["vocab"]) > 73e9
+    cell = small(stated)
+    assert cell.config == dict(cfg, d_model=64, d_hidden=128, vocab=256) and cell.mix == stated.mix
     for trace in (False, True):
+        t = time.monotonic()
         out = bench.run_cell(cell, seed=2**31 + 29, seconds=0.2, trace=trace,
-                             device=torch.device("cpu"), t_start=time.monotonic(), root=root)
+                             device=torch.device("cpu"), t_start=t)
+        assert time.monotonic() - t < 5.0
         assert out.result["correct"], out.result
         assert out.result["check"]["logit_gap"]["value"] < 1e-6
         # traced on the CPU the mfu reader has no device trace and is left out
@@ -286,8 +321,18 @@ def test_cell_of_another_driver_added_from_new_files_alone(tmp_path, monkeypatch
     real = driver.decode_step
     monkeypatch.setattr(driver, "decode_step", lambda state: real(state) + 1e-2)
     out = bench.run_cell(cell, seed=2**31 + 29, seconds=0.2, trace=False,
-                         device=torch.device("cpu"), t_start=time.monotonic(), root=root)
+                         device=torch.device("cpu"), t_start=time.monotonic())
     assert not out.result["correct"] and out.result["check"]["logit_gap"]["value"] > 1e-4
+
+    bare = tmp_path / "bare" / "portbench"
+    shutil.copytree(registry.ROOT, bare, ignore=shutil.ignore_patterns("__pycache__"))
+    _with_toy_cell(bare)
+    path = bare / "drivers" / "toy_decode.py"
+    path.write_text(re.sub(r"\nSMALL = .*\n", "\n", path.read_text()))
+    with pytest.raises(ValueError, match="declares no SMALL"):
+        small(registry.resolve(TOY_CELL["name"], bench_json, bare))
+    with pytest.raises(AssertionError, match="declares no SMALL"):
+        assert_cell_resolves(TOY_CELL, bench_json, bare)
 
 
 def test_mfu_share_by_hand(tmp_path):
