@@ -82,6 +82,7 @@ def search_local(
     doc_id_offset: int = 0,
     use_kernel: bool = False,
     tuning: TuningConfig | None = None,
+    counters: torch.Tensor | None = None,
 ) -> topk.TopKState:
     """Scan a local corpus shard with one scorer; top-k (global doc ids) per
     query, shapes ``[n_q, k]``.
@@ -89,11 +90,12 @@ def search_local(
     ``docs`` is ``(tokens [n, L], lens [n])`` or a `packing.PackedCorpus`
     for lexical scorers, or a vector matrix ``[n, dim]`` for dense scorers;
     ``n`` must be a multiple of ``chunk_size``. ``use_kernel`` changes
-    nothing.
+    nothing. ``counters``: as in :func:`search_local_multi`.
     """
     state = search_local_multi(
         queries, docs, (scorer,), k=k, chunk_size=chunk_size, stats=stats,
         doc_id_offset=doc_id_offset, use_kernel=use_kernel, tuning=tuning,
+        counters=counters,
     )
     return topk.TopKState(scores=state.scores[0], ids=state.ids[0])
 
@@ -110,6 +112,7 @@ def search_local_multi(
     init_state: topk.TopKState | None = None,
     use_kernel: bool = False,
     tuning: TuningConfig | None = None,
+    counters: torch.Tensor | None = None,
 ) -> topk.TopKState:
     """Scan a corpus shard, scoring a whole *grid* of models of one kind.
 
@@ -121,7 +124,8 @@ def search_local_multi(
     result merges into it (associativity of the combiner makes the
     segmented fold equal to the unsegmented one). ``use_kernel`` changes
     nothing: CUDA tensors always take the kernel, CPU tensors its plain
-    version.
+    version. ``counters``: the array a lexical kernel adds its counts into
+    (`ops.lexical_scan_topk`), else the device's own.
     """
     del use_kernel
     scorers = tuple(scorers)
@@ -166,7 +170,7 @@ def search_local_multi(
             scores, ids = ops.lexical_scan_topk(
                 queries, weights, ab, d_tokens, d_len, modes=modes, k=k,
                 block_d=cfg.lex_block(chunk_size, d_tokens.shape[0]), tile_d=cfg.lex_tile_d,
-                pack_spec=pack_spec,
+                pack_spec=pack_spec, counters=counters,
             )
     state = topk.TopKState(scores=scores, ids=_offset_ids(ids, doc_id_offset))
     if init_state is not None:

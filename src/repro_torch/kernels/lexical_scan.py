@@ -36,8 +36,8 @@ Every launch of the kernel adds its counts (`COUNTERS`: flush passes by
 cause, list flushes, candidates flushed, one thread's cycles in flushes and
 in the whole tile loop, the term scores computed and the reads of them, and
 that thread's cycles in the epilogue, summed over the CTAs) into one array
-a device;
-:func:`read_counters` returns them and zeroes them.
+a device, or into the array a call passes (a served block's own);
+:func:`read_counters` returns the device's and zeroes them.
 """
 
 from __future__ import annotations
@@ -340,11 +340,13 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 def lexical_scan_topk_cuda(
     q_tokens, weights, ab, d_tokens, d_len, *, modes, k: int, block_d: int, tile_d: int,
-    pack_spec: PackSpec | None = None,
+    pack_spec: PackSpec | None = None, counters: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on CUDA tensors (checked by the caller) ->
     ``(scores, ids) [n_models, n_q, k]``. With ``pack_spec`` the kernel
     stages the packed rows' bytes and decodes each token as it counts it.
+    The kernel adds its counts into ``counters`` (int64, one a `COUNTERS`
+    name, on the tensors' device), else into the device's own array.
     Raises on any build or launch error."""
     _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d, pack_spec)
     n_q, l_q = q_tokens.shape
@@ -368,7 +370,12 @@ def lexical_scan_topk_cuda(
     out_s = torch.empty((n_models, n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_models, n_q, k), dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    counters = _counter_array(dev)
+    if counters is None:
+        counters = _counter_array(dev)
+    elif (counters.dtype != torch.int64 or tuple(counters.shape) != (len(COUNTERS),)
+          or counters.device != dev or not counters.is_contiguous()):
+        raise ValueError(f"counters: a contiguous int64 [{len(COUNTERS)}] on {dev} expected, "
+                         f"got {counters.dtype} {tuple(counters.shape)} on {counters.device}")
     for q0 in range(0, n_q, geo["group"]):
         g = min(geo["group"], n_q - q0)
         q_g = q_safe[q0 : q0 + g].contiguous()

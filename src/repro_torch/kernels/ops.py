@@ -120,7 +120,7 @@ def score_topk(q, d, *, k: int, block_d: int | None = None, merge: str = "bitoni
 
 def lexical_scan_topk(
     q_tokens, weights, ab, d_tokens, d_len, *, modes, k: int,
-    block_d: int | None = None, tile_d: int | None = None, pack_spec=None,
+    block_d: int | None = None, tile_d: int | None = None, pack_spec=None, counters=None,
 ):
     """Multi-model lexical scan (shared tf + per-model scorer epilogues +
     top-k). -> ``(scores, ids) [n_models, n_q, k]``, ids local to
@@ -135,7 +135,10 @@ def lexical_scan_topk(
     bit-planes), as `packing.pack_tokens` makes it: the plain version
     unpacks it block by block, the kernel decodes each tile on the card, and
     the result is the unpacked call's, bit for bit. A launch counts under
-    ``lexical_scan_topk`` either way.
+    ``lexical_scan_topk`` either way. ``counters``: on a card, the int64
+    array of `lexical_scan.COUNTERS` the kernel adds its counts into, in
+    place of the device's own (`lexical_scan.read_counters`); the plain
+    version counts nothing.
     """
     if block_d is None or tile_d is None:
         cfg = tune_config.active().config
@@ -162,7 +165,7 @@ def lexical_scan_topk(
         run = lambda: _lexical.outputs_meta(q_tokens, weights, k=k)  # noqa: E731
     elif dev.type == "cuda":
         run = lambda: _launch("lexical_scan_topk",  # noqa: E731
-                              _lexical.lexical_scan_topk_cuda, *args, **kw)
+                              _lexical.lexical_scan_topk_cuda, *args, **kw, counters=counters)
     else:
         raise ValueError(f"lexical_scan_topk: no kernel for device {dev}")
     return counting.kernel("lexical_scan_topk",

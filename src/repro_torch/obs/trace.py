@@ -221,6 +221,11 @@ class Tracer:
             )
         )
 
+    def now(self) -> float:
+        """The tracer's clock, for the times a later :meth:`record` takes;
+        0.0 while disabled, when nothing is recorded."""
+        return self._clock() if self.enabled else 0.0
+
     def record(
         self,
         name: str,

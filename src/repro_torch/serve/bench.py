@@ -10,6 +10,7 @@ successive PRs can diff serving regressions.
 from __future__ import annotations
 
 import json
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -45,13 +46,17 @@ def sweep_batch_sizes(
             n_seen = len(service.metrics)
             for row in queries:
                 service.submit(row, session.kind)
+            # a wave larger than the bucket-ladder cap dispatches as several
+            # blocks, which may overlap on the card: the wave's latency runs
+            # from its first launch to its last reply
+            t0 = time.perf_counter()
             results = service.poll()
+            results.update(service.drain())
+            wave_s = time.perf_counter() - t0
             assert len(results) == bs, (len(results), bs)
-            # a wave larger than the bucket-ladder cap dispatches as
-            # several blocks — the wave's latency is their sum
             wave = service.metrics[n_seen:]
             if rep >= warmup:
-                latencies.append(sum(r.latency_s for r in wave))
+                latencies.append(wave_s)
         lat = float(np.median(latencies))
         pt = {
             "batch": bs,

@@ -225,10 +225,14 @@ class Microbatcher:
     def submit(self, rid: int, query: np.ndarray, now: float) -> None:
         self._pending.append(SearchRequest(rid=rid, query=np.asarray(query), arrival=now))
 
+    def full(self) -> bool:
+        """Whether a whole block is queued (the size trigger)."""
+        return len(self._pending) >= self._block_cap
+
     def _trigger(self, now: float) -> str | None:
         if not self._pending:
             return None
-        if len(self._pending) >= self._block_cap:
+        if self.full():
             return "size"
         # same expression as next_deadline(): an event loop that sleeps to
         # exactly the returned deadline must observe the trigger as fired

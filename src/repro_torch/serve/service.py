@@ -15,6 +15,13 @@ Request lifecycle (see docs/ARCHITECTURE.md §Serve):
    fired and dispatches it: lexical blocks to the raw-token chunked scan
    (``scan.search_local``: the lexical kernel), dense blocks to the fused
    score+top-k kernel — one resident-corpus session per kind.
+   A session that offers ``launch``/``collect`` (`session.LexicalSession`)
+   keeps blocks in flight: a block's dispatch returns while the card
+   works, and a later ``poll`` collects it once it is done. A full block
+   may launch behind one still on the card, never a second one; any other
+   block waits until nothing is in flight. Other sessions dispatch and
+   answer within the call, as do all on the CPU, where a launch completes
+   at once.
 3. Padding rows are stripped and per-request ``SearchResult``s are returned
    keyed by request id; a ``BatchRecord`` per block (real/padded size,
    queue wait, device latency, trigger) lands in ``service.metrics``.
@@ -27,6 +34,7 @@ surface under a virtual clock.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Callable, Mapping
@@ -84,6 +92,33 @@ class RejectedError(RuntimeError):
 _BATCH_BOUNDS = tuple(float(1 << i) for i in range(11))  # 1 .. 1024
 
 
+def _launches(session) -> bool:
+    """Whether ``session`` can launch a block and collect it later. Looked
+    up on its class, so that a wrapper delegating every attribute
+    (`loadgen.MeteredSession`, which times each ``search``) stays
+    synchronous."""
+    cls = type(session)
+    return callable(getattr(cls, "launch", None)) and callable(getattr(cls, "collect", None))
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """A dispatched block not yet answered: the session's handle, or the
+    state a synchronous session returned; its number and its launch time on
+    the service clock; whether it launched behind a block on the card."""
+
+    kind: str
+    block: QueryBlock
+    n: int
+    t0: float
+    behind: bool
+    handle: object = None
+    state: object = None
+
+    def done(self) -> bool:
+        return self.handle is None or self.handle.done()
+
+
 class RetrievalService:
     """Dispatcher over resident-corpus sessions, one microbatcher per kind.
 
@@ -133,6 +168,8 @@ class RetrievalService:
             )
             for kind, sess in self.sessions.items()
         }
+        self._launches = {kind: _launches(sess) for kind, sess in self.sessions.items()}
+        self._in_flight: collections.deque[_InFlight] = collections.deque()
         self._next_rid = 0
         self._next_block = 0
         self.metrics: list[BatchRecord] = []
@@ -226,34 +263,50 @@ class RetrievalService:
             return len(self._batchers[kind])
         return sum(len(b) for b in self._batchers.values())
 
-    def _dispatch(self, kind: str, block: QueryBlock) -> dict[int, SearchResult]:
-        """Run one closed block and build its replies.
+    def _launch(self, kind: str, block: QueryBlock) -> None:
+        """Dispatch one closed block: launch it, or search it through a
+        synchronous session, and queue it in flight.
 
         Traced, a block is ``serve.batch_wait`` (its oldest admission to its
-        close), ``serve.dispatch`` (the session's search, holding the
-        session's and the scan's spans) and ``serve.reply`` (everything after
-        the search), each tagged with the block's number, plus one
-        ``serve.request`` a request (admission to reply, same tag) on the
-        service's request lane, apart from the thread's own. The wait and the
-        requests are recorded afterwards from the block's times on the
-        service clock, which is the tracer's clock in production.
+        close), ``serve.dispatch`` (its launch to its results on the host,
+        holding the session's and the scan's spans; ``behind`` 1 when it
+        launched while another block was on the card) and ``serve.reply``
+        (everything after the results), each tagged with the block's number,
+        plus one ``serve.request`` a request (admission to reply, same tag)
+        on the service's request lane, apart from the thread's own. The
+        wait, the dispatch and the requests are recorded from the block's
+        times on the service clock, which is the tracer's clock in
+        production.
         """
         session = self.sessions[kind]
         tr = obs.tracer()
         n = self._next_block
         self._next_block += 1
-        queue_wait = block.closed_at - block.oldest_arrival
+        behind = bool(self._in_flight)
+        if behind:
+            self._met().counter("serve.launched_behind").inc()
         with tr.tags(block=n):
             tr.record("serve.batch_wait", block.oldest_arrival, block.closed_at, "serve",
                       trigger=block.trigger, n_real=block.n_real)
-            t0 = self._clock()
-            with tr.span(
-                "serve.dispatch", "serve",
-                kind=kind, n_real=block.n_real, n_padded=block.n_padded,
-                trigger=block.trigger,
-            ):
-                state = session.search(block.queries)
-            latency = self._clock() - t0
+            f = _InFlight(kind, block, n, self._clock(), behind)
+            if self._launches[kind]:
+                f.handle = session.launch(block.queries)
+            else:
+                f.state = session.search(block.queries)
+        self._in_flight.append(f)
+
+    def _collect(self, f: _InFlight) -> dict[int, SearchResult]:
+        """Wait for an in-flight block's results and build its replies."""
+        tr = obs.tracer()
+        block, kind = f.block, f.kind
+        queue_wait = block.closed_at - block.oldest_arrival
+        with tr.tags(block=f.n):
+            state = f.state if f.handle is None else self.sessions[kind].collect(f.handle)
+            landed = self._clock()
+            latency = landed - f.t0
+            tr.record("serve.dispatch", f.t0, landed, "serve",
+                      kind=kind, n_real=block.n_real, n_padded=block.n_padded,
+                      trigger=block.trigger, behind=int(f.behind))
             with tr.span("serve.reply", "serve"):
                 self.metrics.append(
                     BatchRecord(
@@ -288,30 +341,59 @@ class RetrievalService:
                     for row, rid in enumerate(block.rids)
                 }
 
+    def _may_launch(self, kind: str) -> bool:
+        """Nothing is in flight, or one block is still on the card and
+        ``kind``'s session launches without waiting."""
+        if not self._in_flight:
+            return True
+        return (len(self._in_flight) == 1 and self._launches[kind]
+                and not self._in_flight[0].done())
+
+    def _launch_ready(self) -> None:
+        """Launch what may launch now: with nothing in flight, each block
+        whose trigger has fired, one at a time; behind a block still on the
+        card, one full block. A partial block, even past its deadline, stays
+        open behind a running block and gathers requests until that block
+        is answered or it fills: a block's fixed cost on the card is high,
+        so a small one queued early costs throughput."""
+        for kind, batcher in self._batchers.items():
+            while self._may_launch(kind) and (not self._in_flight or batcher.full()):
+                block = batcher.pop_block(self._clock())
+                if block is None:
+                    break
+                self._launch(kind, block)
+
     def poll(self, limit: int | None = None) -> dict[int, SearchResult]:
-        """Dispatch every block whose size/deadline trigger has fired
-        (at most ``limit`` blocks when given — the load generator uses
-        ``limit=1`` to timestamp completions per block). Runs the adaptive
-        policy tick first, so trigger changes apply to the blocks this
-        poll closes."""
+        """Launch every block that may launch, and answer the in-flight
+        blocks whose results are on the host, oldest first (at most
+        ``limit`` blocks when given — the load generator uses ``limit=1``
+        to timestamp completions per block). Runs the adaptive policy tick
+        first, so trigger changes apply to the blocks this poll closes.
+        Returns without waiting for a block still on the card."""
         if self.policy is not None:
             self.policy.tick(self._clock())
         out: dict[int, SearchResult] = {}
-        dispatched = 0
-        for kind, batcher in self._batchers.items():
-            while (block := batcher.pop_block(self._clock())) is not None:
-                out.update(self._dispatch(kind, block))
-                dispatched += 1
-                if limit is not None and dispatched >= limit:
-                    return out
+        answered = 0
+        while limit is None or answered < limit:
+            self._launch_ready()
+            if not self._in_flight or not self._in_flight[0].done():
+                break
+            out.update(self._collect(self._in_flight.popleft()))
+            answered += 1
         return out
 
     def drain(self) -> dict[int, SearchResult]:
-        """Force-flush all pending queries (shutdown / end of stream)."""
+        """Force-flush all pending queries (shutdown / end of stream):
+        launch every remaining block, wait for everything in flight, and
+        return it all."""
         out: dict[int, SearchResult] = {}
         for kind, batcher in self._batchers.items():
             for block in batcher.drain(self._clock()):
-                out.update(self._dispatch(kind, block))
+                while not self._may_launch(kind):
+                    out.update(self._collect(self._in_flight.popleft()))
+                self._launch(kind, block)
+        while self._in_flight:
+            out.update(self._collect(self._in_flight.popleft()))
         return out
 
     def next_deadline(self) -> float | None:
@@ -324,9 +406,12 @@ class RetrievalService:
     def ready_at(self, now: float) -> float | None:
         """Earliest time ``>= now`` at which some batcher's trigger will
         have fired: ``now`` itself if a block is already ready (size
-        trigger, or an expired deadline), else the earliest pending
+        trigger, or an expired deadline) or a block is in flight (its
+        results may land at any moment), else the earliest pending
         deadline; None when nothing is queued. The load generator's event
         source for 'when could the server next start a dispatch'."""
+        if self._in_flight:
+            return now
         best: float | None = None
         for b in self._batchers.values():
             if b.ready(now):

@@ -15,9 +15,12 @@ run. ``use_kernel`` is accepted and changes nothing.
 ``search`` uploads the query block to the session's device and returns a
 :class:`~repro_torch.core.topk.TopKState` of host tensors. That copy to the
 host is the synchronization point: a caller's clock around ``search``
-(`loadgen.MeteredSession`, `service.BatchRecord.latency_s`) times the
-finished device work, as ``jax.block_until_ready`` makes it do in the
-reference.
+(`loadgen.MeteredSession`) times the finished device work, as
+``jax.block_until_ready`` makes it do in the reference.
+:class:`LexicalSession` also splits it in two: ``launch`` enqueues a block
+and its copy back and returns at once (:class:`Launched`), ``collect``
+waits for that block alone, so a caller can prepare and launch the next
+block while the card scans this one (`service.RetrievalService` does).
 
 :class:`ShardedLexicalSession` keeps the corpus resident *sharded* across a
 `repro_torch.distributed.sharding.Mesh` and reduces every block through the
@@ -25,6 +28,8 @@ cluster merge contract (`repro_torch.cluster.search_mesh`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,6 +45,39 @@ from repro_torch.tune import config as tune_config
 
 def _to_host(state: topk.TopKState) -> topk.TopKState:
     return topk.TopKState(scores=state.scores.cpu(), ids=state.ids.cpu())
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into pinned host memory behind the work queued on the
+    current stream, without the host waiting for it. Such a copy orders
+    after nothing launched later, where ``.cpu()`` on the default stream
+    would wait for every block launched since."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x, non_blocking=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class Launched:
+    """A block launched by :meth:`LexicalSession.launch`: its top k and,
+    traced on a card, the kernel's counts for it, both copied into pinned
+    host memory behind the kernel. ``event`` fires once they have landed,
+    and the card sets ``landed[0]`` (pinned host memory) right after them;
+    both are None where the launch completed at once, on the CPU. ``t0``
+    and ``t1`` are the launch's start and end on the tracer's clock."""
+
+    state: topk.TopKState
+    counts: torch.Tensor | None
+    event: torch.cuda.Event | None
+    landed: np.ndarray | None
+    t0: float
+    t1: float
+
+    def done(self) -> bool:
+        """Whether the results are on the host; never waits. It reads the
+        flag and makes no CUDA call, so a serving loop may ask it as often
+        as it spins (each `torch.cuda.Event.query` would be a runtime call,
+        and a traced window records every one)."""
+        return self.landed is None or bool(self.landed[0])
 
 
 def _pack_resident(tokens, lengths, *, vocab: int | None, mode: str, device):
@@ -116,6 +154,8 @@ class LexicalSession:
         self._docs = _pack_resident(tokens, lengths, vocab=vocab, mode=token_pack,
                                     device=self.device)
         self._lengths = pipeline.leaves(self._docs)[1]
+        # the value a launch copies into its handle's flag behind its results
+        self._landed = torch.ones(1, dtype=torch.int32, device=self.device)
 
     @property
     def n_docs(self) -> int:
@@ -133,34 +173,87 @@ class LexicalSession:
         """Device bytes held by the resident corpus (tokens + lengths)."""
         return packing.tree_nbytes(self._docs)
 
+    def _scan(self, q: torch.Tensor, counters: torch.Tensor | None = None) -> topk.TopKState:
+        return scan.search_local(q, self._docs, self.scorer, k=self.k,
+                                 chunk_size=self.chunk_size, stats=self._stats,
+                                 counters=counters)
+
+    def launch(self, q_block: np.ndarray) -> Launched:
+        """Enqueue one padded query block's scan and the copy of its top k
+        to the host, and return without waiting for the card.
+
+        On a card the block goes up from pinned memory and its results come
+        back into pinned memory, all on the current stream, and an event
+        marks their arrival; traced, the kernel counts into an array of the
+        block's own, copied back with the results, and the launch holds
+        ``session.upload`` (the block to the device), the scan's
+        ``scan.epilogue`` and ``scan.launch`` (:meth:`collect` records the
+        rest). On the CPU the block is searched here (:meth:`search`) and
+        the handle is done at once.
+        """
+        if self.device.type != "cuda":
+            return Launched(self.search(q_block), None, None, None, 0.0, 0.0)
+        tr = obs.tracer()
+        t0 = tr.now()
+        with tr.span("session.upload", "session"):
+            # from pinned memory: a blocking copy would wait for every block queued
+            q = torch.as_tensor(np.asarray(q_block, np.int32)).pin_memory()
+            q = q.to(self.device, non_blocking=True)
+        counts = (torch.zeros(len(lexical_scan.COUNTERS), dtype=torch.int64, device=self.device)
+                  if tr.enabled else None)
+        state = self._scan(q, counts)
+        state = topk.TopKState(scores=_pinned(state.scores), ids=_pinned(state.ids))
+        counts = None if counts is None else _pinned(counts)
+        # copied after the results on the same stream, so it lands after them
+        landed = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        landed.copy_(self._landed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return Launched(state, counts, event, landed.numpy(), t0, tr.now())
+
+    def collect(self, handle: Launched) -> topk.TopKState:
+        """Wait for a launched block's results and return them as host
+        tensors of the caller's own (not pinned).
+
+        Traced, a card's block records ``session.to_host`` (the launch's end
+        to the results on the host: the wait for the card and the copy) and
+        ``session.search`` (the launch's start to the same end), which
+        carries the block's kernel counts.
+        """
+        if handle.event is None:
+            return handle.state  # searched at launch, spans and all
+        handle.event.synchronize()
+        tr = obs.tracer()
+        t2 = tr.now()
+        tr.record("session.to_host", handle.t1, t2, "session")
+        counts = ({} if handle.counts is None
+                  else dict(zip(lexical_scan.COUNTERS, handle.counts.tolist())))
+        tr.record("session.search", handle.t0, t2, "session", **counts)
+        # numpy copies on this thread: `Tensor.clone` splits a 64-row block over
+        # torch's worker threads, and waking them held the serving loop for up
+        # to ~30 ms at times (on an H100 host under open-loop traffic)
+        return topk.TopKState(scores=torch.from_numpy(handle.state.scores.numpy().copy()),
+                              ids=torch.from_numpy(handle.state.ids.numpy().copy()))
+
     def search(self, q_block: np.ndarray) -> topk.TopKState:
         """Scan one padded query block; returns once the results are on the
-        host.
+        host. On a card, :meth:`collect` of :meth:`launch`.
 
         Traced, the call is ``session.search``, holding ``session.upload``
         (the block to the device), the scan's ``scan.epilogue`` and
         ``scan.launch``, and ``session.to_host`` (waiting for the device and
-        the copy). On a card the span also carries the lexical kernel's
-        counters for the block (`lexical_scan.read_counters`): what earlier
-        launches left is dropped first, and the block's counts are read
-        once the copy has synchronized, so neither read waits for work.
+        the copy); on a card the span also carries the lexical kernel's
+        counts for the block.
         """
+        if self.device.type == "cuda":
+            return self.collect(self.launch(q_block))
         tr = obs.tracer()
-        counted = tr.enabled and self.device.type == "cuda"
-        if counted:
-            lexical_scan.read_counters(self.device)
-        with tr.span("session.search", "session") as span:
+        with tr.span("session.search", "session"):
             with tr.span("session.upload", "session"):
                 q = torch.as_tensor(np.asarray(q_block, np.int32), device=self.device)
-            state = scan.search_local(
-                q, self._docs, self.scorer, k=self.k, chunk_size=self.chunk_size,
-                stats=self._stats,
-            )
+            state = self._scan(q)
             with tr.span("session.to_host", "session"):
-                state = _to_host(state)
-            if counted:
-                span.set(**lexical_scan.read_counters(self.device))
-        return state
+                return _to_host(state)
 
 
 class ShardedLexicalSession:

@@ -36,7 +36,9 @@ wrapper's bits, no corpus-sized allocation a block); the ragged bag and
 the reduced GNN in every regime repeat their bytes on the card, and the GNN
 holds to the CPU (float64 within 1e-5, float32 logits within 2e-4 / 2e-5).
 The lexical kernel's counters move on every launch and zero when read, and
-a traced session's block carries its own launch's counts; its term scores,
+a traced session's block carries its own launch's counts, also when two
+blocks are launched back to back behind a busy card (no host sync, each
+collected to its own bytes); its term scores,
 shared by the slots that hold a term with the same weight's bits, keep the
 plain version's bits in every token layout, and the term counters count
 what the inputs say they must.
@@ -288,6 +290,46 @@ def test_cuda_traced_lexical_session_carries_its_blocks_counts():
     for state in traced:
         assert torch.equal(state.ids, untraced.ids)
         assert torch.equal(state.scores.view(torch.int32), untraced.scores.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_lexical_session_launches_two_blocks_before_collecting():
+    """Two blocks launched back to back behind a busy card return without a
+    host sync and before the card reaches them; collected, each gives its
+    own ``search`` bytes in host memory of its own, and, traced, each
+    block's ``session.search`` carries the counts of that block run alone."""
+    from repro_torch import obs
+    from repro_torch.serve.session import LexicalSession
+
+    dev = _card()
+    qa, toks, lens = _lexical_inputs(951, 4096, 24, 8, 4, 50, 0)
+    qb = _lexical_inputs(952, 4096, 24, 8, 6, 50, 0)[0]
+    session = LexicalSession(toks, lens, "ql_lm", k=20, chunk_size=4096, vocab=50,
+                             token_pack="none", device=dev)
+    want = [session.search(q) for q in (qa, qb)]
+    with obs.session() as (tr, _):
+        [session.search(q) for q in (qa, qb)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)  # the card is busy for about a second
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handles = [session.launch(q) for q in (qa, qb)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert not any(h.done() for h in handles)
+        got = [session.collect(h) for h in handles]
+    assert all(h.done() for h in handles)
+    for g, w in zip(got, want):
+        assert not g.scores.is_pinned() and not g.ids.is_pinned()
+        assert torch.equal(g.ids, w.ids)
+        assert torch.equal(g.scores.view(torch.int32), w.scores.view(torch.int32))
+    searches = [s.attrs for s in tr.spans("session.search")]
+    alone, launched = searches[:2], searches[2:]
+    exact = ("passes_final", "term_scores", "term_uses")
+    assert alone[0]["term_scores"] != alone[1]["term_scores"], alone
+    for a, b in zip(alone, launched):
+        assert {n: b[n] for n in exact} == {n: a[n] for n in exact}, (a, b)
+        assert 0 < b["flush_cycles"] <= b["loop_cycles"]
 
 
 # n_d, L_d, vocab, token_pack, first row (rows before it sliced off), k, block_d, tile_d

@@ -25,7 +25,7 @@ from repro.data import synthetic as ref_synthetic
 from repro.obs.metrics import Histogram as RefHistogram
 from repro.obs.metrics import Metrics as RefMetrics
 from repro.serve import microbatch as ref_mb
-from repro_torch import convert
+from repro_torch import convert, obs
 from repro_torch.data import synthetic
 from repro_torch.obs.metrics import Histogram, Metrics
 from repro_torch.serve import bench
@@ -571,3 +571,190 @@ def test_sharded_session_behind_admission_byte_identical(token_pack):
         assert (res.scores.tobytes(), res.ids.tobytes()) == (want.scores.tobytes(),
                                                              want.ids.tobytes())
     assert policy.oscillation_violations == 0
+
+
+# ------------------------------------------------------- blocks in flight
+
+
+class Launch:
+    """A launched block whose completion the test sets."""
+
+    def __init__(self, state):
+        self.state, self.finished = state, False
+
+    def done(self):
+        return self.finished
+
+
+class LaunchingSession(StubSession):
+    """`StubSession`'s rows, with ``launch``/``collect``: a launch returns at
+    once, ``done`` turns true when the test finishes it, and ``collect``
+    waits (here: finishes it) as a card's session does."""
+
+    def __init__(self):
+        super().__init__()
+        self.launched = []
+
+    def launch(self, q):
+        handle = Launch(self.search(q))
+        self.launched.append(handle)
+        return handle
+
+    def collect(self, handle):
+        handle.finished = True
+        return handle.state
+
+    def finish(self, n=None):
+        for h in self.launched if n is None else self.launched[:n]:
+            h.finished = True
+
+
+def _in_flight_service(**kw):
+    clock = ManualClock()
+    session = LaunchingSession()
+    registry = Metrics()
+    service = port_serve.RetrievalService(
+        {"stub": session}, max_batch=4, max_delay=0.005, min_bucket=4, clock=clock,
+        registry=registry, **kw)
+    return service, session, clock, registry
+
+
+def _submit(service, n, start=0):
+    return [service.submit(np.full(3, start + i, np.int32)) for i in range(n)]
+
+
+def test_poll_returns_while_a_block_is_in_flight_and_admits_meanwhile():
+    service, session, clock, _ = _in_flight_service()
+    rids = _submit(service, 4)
+    assert service.poll() == {} and len(session.launched) == 1
+    assert service.ready_at(clock.t) == clock.t  # never None while a block is in flight
+    clock.t += 0.001
+    out = service.try_submit(np.full(3, 9, np.int32))
+    assert out.admitted and service.pending() == 1
+    assert service.ready_at(clock.t) == clock.t and service.poll(limit=1) == {}
+    session.finish()
+    got = service.poll(limit=1)
+    assert sorted(got) == rids and len(session.launched) == 1
+    # nothing is in flight now: the lone request waits for its deadline
+    assert service.ready_at(clock.t) == pytest.approx(0.006)
+
+
+def test_a_full_block_launches_behind_the_running_one_never_a_second():
+    service, session, clock, registry = _in_flight_service()
+    rids = _submit(service, 12)
+    assert service.poll() == {}
+    assert len(session.launched) == 2 and service.pending() == 4
+    clock.t += 1.0
+    assert service.poll() == {} and len(session.launched) == 2
+    session.finish(1)
+    got = service.poll(limit=1)
+    assert sorted(got) == rids[:4] and len(session.launched) == 2
+    # the next poll gives the answered block's slot to the queued full
+    # block, behind the second
+    assert service.poll() == {}
+    assert len(session.launched) == 3 and service.pending() == 0
+    assert registry.summary()["counters"]["serve.launched_behind"] == 2
+    session.finish()
+    got = service.poll()
+    assert sorted(got) == rids[4:]
+    assert [r.trigger for r in service.metrics] == ["size"] * 3
+
+
+def test_a_partial_block_past_its_deadline_waits_for_the_running_block():
+    service, session, clock, _ = _in_flight_service()
+    _submit(service, 4)
+    service.poll()
+    late = _submit(service, 2, start=4)
+    clock.t += 0.010  # the partial block's deadline passes while block 0 runs
+    assert service.ready_at(clock.t) == clock.t
+    assert service.poll() == {} and len(session.launched) == 1
+    late += _submit(service, 1, start=6)  # it stays open and gathers
+    session.finish()
+    got = service.poll()
+    # block 0 answered, then the partial block launched at once
+    assert len(got) == 4 and len(session.launched) == 2
+    assert session.block_sizes[-1] == 4 and service.pending() == 0
+    session.finish()
+    assert sorted(service.poll()) == late
+    rec = service.metrics[-1]
+    assert (rec.n_real, rec.trigger) == (3, "deadline")
+
+
+def test_a_partial_block_that_fills_behind_the_running_block_launches_behind_it():
+    service, session, clock, _ = _in_flight_service()
+    _submit(service, 4)
+    service.poll()
+    _submit(service, 3, start=4)
+    clock.t += 0.010
+    service.poll()
+    assert len(session.launched) == 1
+    _submit(service, 1, start=7)
+    service.poll()
+    assert len(session.launched) == 2 and service.metrics == []
+
+
+def test_drain_returns_every_in_flight_reply():
+    service, session, clock, _ = _in_flight_service()
+    rids = _submit(service, 10)
+    assert service.poll() == {} and len(session.launched) == 2
+    got = service.drain()
+    assert sorted(got) == rids and len(session.launched) == 3
+    assert all(h.finished for h in session.launched)
+    assert service.ready_at(clock.t) is None
+    assert [r.n_real for r in service.metrics] == [4, 4, 2]
+
+
+def test_in_flight_replies_are_the_synchronous_paths_bytes():
+    """Requests admitted and blocks finished in a seeded order give, request
+    by request, the bytes the synchronous path gives for the same queries;
+    the dispatch spans say which blocks launched behind another."""
+    rng = np.random.default_rng(5)
+    queries = rng.integers(0, 1000, size=(60, 3)).astype(np.int32)
+    sync = port_serve.RetrievalService({"stub": StubSession()}, max_batch=64, max_delay=60.0)
+    for q in queries:
+        sync.submit(q)
+    want = sync.drain()
+    service, session, clock, registry = _in_flight_service()
+    got, rid_of = {}, {}
+    with obs.session() as (tr, _):
+        for i, q in enumerate(queries):
+            rid_of[service.submit(q)] = i
+            clock.t += 0.002
+            if rng.random() < 0.3:
+                session.finish(int(rng.integers(0, len(session.launched) + 1)))
+            got.update(service.poll(limit=int(rng.integers(1, 3))))
+        got.update(service.drain())
+    assert sorted(got) == sorted(rid_of)
+    for rid, res in got.items():
+        w = want[rid_of[rid]]
+        assert (res.scores.tobytes(), res.ids.tobytes()) == (w.scores.tobytes(), w.ids.tobytes())
+    dispatches = tr.spans("serve.dispatch")
+    behind = sum(d.attrs["behind"] for d in dispatches)
+    assert len(dispatches) == len(service.metrics) == len(session.launched)
+    assert 0 < behind == registry.summary()["counters"]["serve.launched_behind"]
+
+
+def test_a_metered_lexical_session_stays_synchronous():
+    """`loadgen.MeteredSession` delegates every attribute, the wrapped
+    session's ``launch`` too; the service still searches through it, so the
+    virtual clock advances on every block, and a CPU session's own launches
+    complete within the poll that makes them."""
+    corpus, _, session = _lexical(k=4, n_docs=256)
+    queries = synthetic.make_queries(corpus, n_queries=16, seed=2)
+    clock = port_serve.VirtualClock()
+    metered = port_serve.MeteredSession(session, clock)
+    assert callable(metered.launch)
+    service = port_serve.RetrievalService({"lexical": metered}, max_batch=8, max_delay=1.0,
+                                          min_bucket=8, clock=clock, registry=Metrics())
+    for q in queries:
+        service.submit(q)
+    for block in range(2):
+        t = clock.t
+        got = service.poll(limit=1)
+        assert len(got) == 8 and clock.t > t, block
+    assert all(r.latency_s > 0 for r in service.metrics) and len(service.metrics) == 2
+    plain = port_serve.RetrievalService({"lexical": session}, max_batch=8, registry=Metrics())
+    for q in queries:
+        plain.submit(q)
+    assert len(plain.poll(limit=1)) == 8 and len(plain.poll(limit=1)) == 8
+    assert plain.ready_at(0.0) is None
