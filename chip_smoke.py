@@ -1093,7 +1093,7 @@ def _flash_kernels(ctx) -> None:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attn, flash_decode, ops
+    from repro_torch.kernels import _build, flash_attn, flash_decode, ops
 
     f32, bf16 = torch.float32, torch.bfloat16
     results = []
@@ -1164,7 +1164,7 @@ def _flash_kernels(ctx) -> None:
     # t on the device: 0, either side of a split edge, the last slot; windows
     # narrower than one split and across one; equal to the host-int call
     b, s, kv, g, hd = 2, 1100, 4, 2, 256
-    block, _ = flash_decode.split_plan(s, None, b * kv, flash_decode.sm_count("cuda"), 512)
+    block, _ = flash_decode.split_plan(s, None, b * kv, _build.sm_count("cuda"), 512)
     for dtype in (f32, bf16):
         seed = len(results)
         q = _rows(seed, (b, kv * g, hd), dtype)
@@ -1312,7 +1312,7 @@ def _flash_kernels(ctx) -> None:
                          "gb_per_s": dec_bytes / ms * 1e-6, "gb_per_s_cap_none": dec_bytes / ms_nocap * 1e-6,
                          "library_gb_per_s": dec_bytes / library_ms * 1e-6,
                          **close, "control_row_excess": control, "ops": flops, "bytes": dec_bytes}
-        plan = flash_decode.split_plan(slots, window, b * kv, flash_decode.sm_count("cuda"), 512)
+        plan = flash_decode.split_plan(slots, window, b * kv, _build.sm_count("cuda"), 512)
         emit("kernels.timing", kernel="flash_decode", layer=label,
              shape=f"B {b}, {slots} slots, t {t} (a device int32), H {h}, KV {kv}, hd {hd}, "
              f"bf16, cap {cap}, window {window}, splits of {plan[0]} positions, {plan[1]} a pair",

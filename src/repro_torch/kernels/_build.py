@@ -18,6 +18,13 @@ tensor cores and has no multiply and add for nvcc to contract (its TF32
 split is a subtraction alone), so it needs no such flag; the flash kernels,
 held to tolerances and not to bits, let nvcc contract multiplies and adds
 into FMAs. Fast math is never on.
+
+Each source's C interface is two functions, ``<name>_launch`` (its
+parameters, the stream last; returns 0 or a CUDA error code) and
+``<name>_error_string``. :class:`Entry` types them from the kernel module's
+spec string (``LAUNCH_ARGS``) and calls the launch on the device's current
+stream; :func:`check_aligned` and :func:`sm_count` are the other checks and
+facts every launch asks for.
 """
 
 from __future__ import annotations
@@ -30,6 +37,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
+
+from repro_torch.device import canonical_device
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -47,6 +58,8 @@ SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SMS: dict[torch.device, int] = {}
+_C_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 # name -> {"seconds": nvcc wall time (0.0 when reused), "ptxas": its report}
 BUILD_LOG: dict[str, dict] = {}
 
@@ -124,3 +137,54 @@ def load(name: str) -> ctypes.CDLL:
         with _LOCK:
             lib = _LIBS.setdefault(name, ctypes.CDLL(str(path)))
     return lib
+
+
+class Entry:
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``, its
+    parameters typed from ``spec`` (one letter each, in order: ``p`` a
+    pointer, ``i`` an int, ``f`` a float; the last is the stream). The
+    library is loaded, and built first if need be, at the first call."""
+
+    def __init__(self, name: str, spec: str):
+        self.name = name
+        self.spec = spec
+        self._fns = None
+
+    def _bind(self):
+        if self._fns is None:
+            lib = load(self.name)
+            launch = getattr(lib, f"{self.name}_launch")
+            launch.argtypes = [_C_TYPES[c] for c in self.spec]
+            launch.restype = ctypes.c_int
+            error_string = getattr(lib, f"{self.name}_error_string")
+            error_string.argtypes = [ctypes.c_int]
+            error_string.restype = ctypes.c_char_p
+            self._fns = (launch, error_string)
+        return self._fns
+
+    def __call__(self, device, *args) -> None:
+        """Launch with ``args`` and ``device``'s current stream after them;
+        raises RuntimeError with the kernel's own error string on a nonzero
+        return."""
+        launch, error_string = self._bind()
+        rc = launch(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            msg = error_string(rc).decode()
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} ({msg})")
+
+
+def check_aligned(what: str, **tensors) -> None:
+    """Raise ValueError for a tensor whose data does not start 16-byte
+    aligned (the kernels load 16 bytes at a time)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start 16-byte aligned")
+
+
+def sm_count(device) -> int:
+    """The card's SM count, asked of the driver once a card."""
+    dev = canonical_device(device)
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n

@@ -77,7 +77,8 @@
 // cycles from the end of each of its rows' count to the end of the row's
 // offers. At its end it adds them once, by atomicAdd, into the
 // caller's uint64 `counters[kCounters]` (`lexical_scan.COUNTERS` names them
-// in order). They never change what the kernel computes.
+// in order), or nowhere when `counters` is null. They never change what the
+// kernel computes.
 //
 // Float bits. Built with --fmad=false and without fast math: every product
 // and quotient rounds on its own, and logf / log1pf / sqrtf / '/' are the
@@ -523,7 +524,7 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
     L.st_len[static_cast<size_t>(blockIdx.x) * n_lists + l] = len[l];
   }
   // the flush's last barrier has put every warp's counts in
-  if (tid == 0) {
+  if (tid == 0 && counters != nullptr) {
     unsigned long long lists = 0, cands = 0, scores = 0, uses = 0;
     for (int i = 0; i < kWarps; ++i) {
       lists += tally[i];
@@ -552,7 +553,7 @@ lexical_scan_merge(topk::Lists L, float* __restrict__ out_s, int* __restrict__ o
 // Plain C entry point for ctypes: the scan, then the merge. `pack` is the
 // token layout (kPack*), `l_tok` the unpacked row length, `row_bytes` a
 // stored row's bytes, `bits` the bit-planes and `sentinel` the packed PAD;
-// the scan adds its counts to `counters` (kCounters uint64s).
+// the scan adds its counts to `counters` (kCounters uint64s, or null).
 // Returns cudaGetLastError() after the launches (the Python wrapper raises
 // when that is not cudaSuccess).
 extern "C" int lexical_scan_launch(

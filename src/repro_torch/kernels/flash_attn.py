@@ -33,8 +33,6 @@ forward to it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -244,16 +242,9 @@ def check_geometry(dtype, s: int, hd: int, block_q: int, block_k: int) -> None:
         raise ValueError(f"sequence {s} not divisible by block_q {block_q} / block_k {block_k}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn")
-    if not getattr(lib, "_repro_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attn_launch.argtypes = [p] * 4 + [i] * 5 + [f, f] + [i] * 5 + [p]
-        lib.flash_attn_launch.restype = i
-        lib.flash_attn_error_string.argtypes = [i]
-        lib.flash_attn_error_string.restype = ctypes.c_char_p
-        lib._repro_typed = True
-    return lib
+# the C entry point's parameters, in order: p a pointer, i an int, f a float
+LAUNCH_ARGS = "p" * 4 + "i" * 5 + "ff" + "i" * 5 + "p"
+_launch = _build.Entry("flash_attn", LAUNCH_ARGS)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None, cap: float | None,
@@ -264,19 +255,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None, cap: floa
     b, s, h, hd = q.shape
     kv = k.shape[2]
     check_geometry(q.dtype, s, hd, block_q, block_k)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash kernel: {name} must start 16-byte aligned")
+    _build.check_aligned("flash kernel", q=q, k=k, v=v)
     out = torch.empty_like(q)
-    lib = _lib()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    rc = lib.flash_attn_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, hd,
+    _launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, hd,
         hd ** -0.5, 0.0 if cap is None else float(cap), int(causal),
         0 if window is None else int(window), block_q, block_k,
-        int(q.dtype == torch.bfloat16), stream,
+        int(q.dtype == torch.bfloat16),
     )
-    if rc != 0:
-        msg = lib.flash_attn_error_string(rc).decode()
-        raise RuntimeError(f"flash_attn launch failed: CUDA error {rc} ({msg})")
     return out

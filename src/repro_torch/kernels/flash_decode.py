@@ -32,10 +32,9 @@ in the whole cache, ``[0, cache_len)``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from repro_torch.device import canonical_device
 from repro_torch.kernels import _build
 
 NEG = -1e30
@@ -50,7 +49,6 @@ SMEM_LIMIT = 128 * 1024  # the kernel's dynamic shared-memory permission (csrc k
 
 # per device: the error word (never freed, so a CUDA graph may hold it)
 _ERRORS: dict[torch.device, torch.Tensor] = {}
-_SMS: dict[torch.device, int] = {}
 
 
 def allowed_range(t: int, window: int | None, *, pos0: int = 0, s: int | None = None,
@@ -175,16 +173,9 @@ def check_geometry(dtype, h: int, kv: int, hd: int, block_s: int) -> None:
                          f"of {SPLIT_ALIGN}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_decode")
-    if not getattr(lib, "_repro_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_decode_launch.argtypes = [p] * 12 + [i] * 12 + [f, f, i, i, p]
-        lib.flash_decode_launch.restype = i
-        lib.flash_decode_error_string.argtypes = [i]
-        lib.flash_decode_error_string.restype = ctypes.c_char_p
-        lib._repro_typed = True
-    return lib
+# the C entry point's parameters, in order: p a pointer, i an int, f a float
+LAUNCH_ARGS = "p" * 12 + "i" * 12 + "ff" + "ii" + "p"
+_launch = _build.Entry("flash_decode", LAUNCH_ARGS)
 
 
 def _error_word(dev: torch.device) -> torch.Tensor:
@@ -193,31 +184,15 @@ def _error_word(dev: torch.device) -> torch.Tensor:
     return _ERRORS[dev]
 
 
-def _card(dev) -> torch.device:
-    """``dev`` with its index (``cuda`` is the current card)."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def take_error(dev) -> int:
     """The device error word (1 after a call whose device ``t`` lay outside
     its cache; that call's outputs are NaN), cleared. Syncs."""
-    dev = _card(dev)
+    dev = canonical_device(dev)
     if dev not in _ERRORS:
         return 0
     word = int(_ERRORS[dev].item())
     _ERRORS[dev].zero_()
     return word
-
-
-def sm_count(dev) -> int:
-    """The card's SM count (cached)."""
-    dev = _card(dev)
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev]
 
 
 def _positions_view(name: str, x: torch.Tensor) -> int:
@@ -255,9 +230,7 @@ def flash_decode_cuda(q, k_cache, v_cache, t, *, window: int | None, cap: float 
     stride_b = _positions_view("k_cache", k_cache)
     if v_cache.stride() != k_cache.stride():
         raise ValueError("flash decode kernel: k_cache and v_cache must share their strides")
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"flash decode kernel: {name} must start 16-byte aligned")
+    _build.check_aligned("flash decode kernel", q=q, k_cache=k_cache, v_cache=v_cache)
     if t.dtype != torch.int32 or t.numel() != 1 or t.device != q.device:
         raise ValueError(f"flash decode kernel: t must be one int32 on {q.device}")
     total = pos0 + s if cache_len is None else cache_len
@@ -265,7 +238,7 @@ def flash_decode_cuda(q, k_cache, v_cache, t, *, window: int | None, cap: float 
         raise ValueError(f"flash decode kernel: a slice of {s} from {pos0} outside a cache of "
                          f"{total}")
     dev = q.device
-    block, n_splits = split_plan(s, window, b * kv, sm_count(dev), block_s)
+    block, n_splits = split_plan(s, window, b * kv, _build.sm_count(dev), block_s)
     part_m = torch.empty((b * kv, n_splits, g), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b * kv, n_splits, g, hd), dtype=torch.float32, device=dev)
@@ -277,17 +250,12 @@ def flash_decode_cuda(q, k_cache, v_cache, t, *, window: int | None, cap: float 
     else:
         out = torch.empty_like(q)
         o_ptr, o32_ptr, lse_ptr = out.data_ptr(), None, None
-    lib = _lib()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rc = lib.flash_decode_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), t.data_ptr(), part_m.data_ptr(),
+    _launch(
+        dev, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), t.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
         _error_word(dev).data_ptr(), o_ptr, o32_ptr, lse_ptr, b, s, stride_b, pos0,
         int(not include_t), total, kv, g, hd, 0 if window is None else int(window), block,
         n_splits, hd ** -0.5, 0.0 if cap is None else float(cap), int(q.dtype == torch.bfloat16),
-        smem_bytes(g, hd, q.dtype, n_splits), stream,
+        smem_bytes(g, hd, q.dtype, n_splits),
     )
-    if rc != 0:
-        msg = lib.flash_decode_error_string(rc).decode()
-        raise RuntimeError(f"flash_decode launch failed: CUDA error {rc} ({msg})")
     return (out, row_lse) if lse else out

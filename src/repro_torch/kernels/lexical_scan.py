@@ -32,18 +32,15 @@ where the count reads it. Results are the unpacked call's, bit for bit.
 The public entry point is `repro_torch.kernels.ops.lexical_scan_topk`, which
 picks between the two by the tensors' device and counts launches.
 
-Every launch of the kernel adds its counts (`COUNTERS`: flush passes by
-cause, list flushes, candidates flushed, one thread's cycles in flushes and
-in the whole tile loop, the term scores computed and the reads of them, and
-that thread's cycles in the epilogue, summed over the CTAs) into one array
-a device, or into the array a call passes (a served block's own);
-:func:`read_counters` returns the device's and zeroes them.
+A launch given a counter array adds the kernel's counts into it
+(`COUNTERS`: flush passes by cause, list flushes, candidates flushed, one
+thread's cycles in flushes and in the whole tile loop, the term scores
+computed and the reads of them, and that thread's cycles in the epilogue,
+summed over the CTAs); a launch without one counts nowhere. The counts go
+only to the array the caller passes (a traced served block's own).
 """
 
 from __future__ import annotations
-
-import ctypes
-import threading
 
 import torch
 
@@ -59,7 +56,6 @@ from repro_torch.core.scoring import (
 from repro_torch.core.topk import sort_key
 from repro_torch.kernels import _build
 from repro_torch.kernels.score_topk import (
-    _c_args,
     _pad_desc,
     bitonic_merge_desc,
     list_states,
@@ -267,6 +263,7 @@ def launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d, n_sms: int
 
 # the C entry point's parameters, in order: p a pointer, i an int
 LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 18 + "pp"
+_launch = _build.Entry("lexical_scan", LAUNCH_ARGS)
 
 # the kernel's counters, in the order of its `counters` array (kCounters):
 # flush passes because an offer raised `need`, on the schedule (tile 1 and
@@ -281,61 +278,6 @@ LAUNCH_ARGS = "p" * 6 + "p" * 7 + "pp" + "i" * 18 + "pp"
 COUNTERS = ("passes_need", "passes_scheduled", "passes_rows", "passes_final",
             "list_flushes", "candidates", "flush_cycles", "loop_cycles",
             "term_scores", "term_uses", "epilogue_cycles")
-_counters: dict[torch.device, torch.Tensor] = {}
-_counters_lock = threading.Lock()
-
-
-def _device_key(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def _counter_array(dev: torch.device) -> torch.Tensor:
-    """The device's counters (uint64 on the card, held as int64), made zero
-    on first use; the launch adds to them on any stream."""
-    key = _device_key(dev)
-    arr = _counters.get(key)
-    if arr is None:
-        with _counters_lock:
-            arr = _counters.get(key)
-            if arr is None:
-                arr = torch.zeros(len(COUNTERS), dtype=torch.int64, device=key)
-                torch.cuda.synchronize(key)  # zero before a launch on another stream
-                _counters[key] = arr
-    return arr
-
-
-def read_counters(device) -> dict[str, int]:
-    """The kernel's counts on ``device`` since the last read, by
-    `COUNTERS` name, and zeroes them; all 0 where it never ran. The read
-    copies on the current stream: the launches queued there are in it,
-    those of other streams only once they have finished."""
-    arr = _counters.get(_device_key(device))
-    if arr is None:
-        return dict.fromkeys(COUNTERS, 0)
-    values = arr.tolist()
-    arr.zero_()
-    return dict(zip(COUNTERS, values))
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("lexical_scan")
-    if not getattr(lib, "_repro_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lexical_scan_launch.argtypes = _c_args(LAUNCH_ARGS)
-        lib.lexical_scan_launch.restype = i
-        lib.lexical_scan_error_string.argtypes = [i]
-        lib.lexical_scan_error_string.restype = ctypes.c_char_p
-        lib._repro_typed = True
-    return lib
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.lexical_scan_error_string(rc).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
 def lexical_scan_topk_cuda(
@@ -346,22 +288,20 @@ def lexical_scan_topk_cuda(
     ``(scores, ids) [n_models, n_q, k]``. With ``pack_spec`` the kernel
     stages the packed rows' bytes and decodes each token as it counts it.
     The kernel adds its counts into ``counters`` (int64, one a `COUNTERS`
-    name, on the tensors' device), else into the device's own array.
-    Raises on any build or launch error."""
+    name, on the tensors' device) when given; without it nothing is
+    counted. Raises on any build or launch error."""
     _check_args(q_tokens, weights, ab, d_tokens, d_len, modes, k, block_d, tile_d, pack_spec)
     n_q, l_q = q_tokens.shape
     n_d, l_d = d_tokens.shape
     n_models = weights.shape[0]
     dev = d_tokens.device
     geo = launch_geometry(n_models, n_q, l_q, n_d, l_d, k, block_d, tile_d,
-                          torch.cuda.get_device_properties(dev).multi_processor_count,
-                          pack_spec=pack_spec)
+                          _build.sm_count(dev), pack_spec=pack_spec)
     # the unpacked row length, the layout, its bit-planes and PAD sentinel
     l_tok = l_d if pack_spec is None else pack_spec.length
     pack = _PACK_CODE[None if pack_spec is None else pack_spec.mode]
     bits = 0 if pack_spec is None else pack_spec.bits
     sentinel = 0 if pack_spec is None else pack_spec.vocab
-    lib = _lib()
     q_safe = safe_queries(q_tokens).contiguous()
     # from pinned memory without waiting: a blocking copy would make the
     # host wait here for the device's queue, every call
@@ -369,11 +309,9 @@ def lexical_scan_topk_cuda(
         dev, non_blocking=True)
     out_s = torch.empty((n_models, n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_models, n_q, k), dtype=torch.int32, device=dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if counters is None:
-        counters = _counter_array(dev)
-    elif (counters.dtype != torch.int64 or tuple(counters.shape) != (len(COUNTERS),)
-          or counters.device != dev or not counters.is_contiguous()):
+    if counters is not None and (
+            counters.dtype != torch.int64 or tuple(counters.shape) != (len(COUNTERS),)
+            or counters.device != dev or not counters.is_contiguous()):
         raise ValueError(f"counters: a contiguous int64 [{len(COUNTERS)}] on {dev} expected, "
                          f"got {counters.dtype} {tuple(counters.shape)} on {counters.device}")
     for q0 in range(0, n_q, geo["group"]):
@@ -386,16 +324,15 @@ def lexical_scan_topk_cuda(
         whole = g == n_q
         o_s = out_s if whole else torch.empty((n_models, g, k), dtype=torch.float32, device=dev)
         o_i = out_i if whole else torch.empty((n_models, g, k), dtype=torch.int32, device=dev)
-        rc = lib.lexical_scan_launch(
-            q_g.data_ptr(), w_g.data_ptr(), ab.data_ptr(), codes.data_ptr(),
+        _launch(
+            dev, q_g.data_ptr(), w_g.data_ptr(), ab.data_ptr(), codes.data_ptr(),
             d_tokens.data_ptr(), d_len.data_ptr(), *(t.data_ptr() for t in state),
             o_s.data_ptr(), o_i.data_ptr(), g, l_q, n_models, n_d, l_tok, geo["row_bytes"],
             pack, bits, sentinel, k, geo["k_pad"], geo["cap"], geo["n_splits"],
             geo["tile_docs"], geo["flush_rows"], geo["log2h"],
             _smem_bytes(n_models, g, l_q, geo["tile_docs"], geo["row_bytes"], geo["cap"], l_tok),
-            geo["merge_smem"], counters.data_ptr(), stream,
+            geo["merge_smem"], None if counters is None else counters.data_ptr(),
         )
-        _raise_on(lib, rc, "lexical_scan launch")
         if not whole:
             out_s[:, q0 : q0 + g] = o_s
             out_i[:, q0 : q0 + g] = o_i

@@ -56,17 +56,30 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _launch(name: str, fn, *args, **kwargs):
-    """Launch a CUDA kernel and count it."""
-    out = fn(*args, **kwargs)
-    count_launch(name)
-    return out
+def _dispatch(name: str, dev: torch.device, plain, meta, cuda, cost):
+    """The one switch on the device: ``plain()`` on the CPU, ``meta()`` on
+    ``meta`` (outputs' shapes and dtypes, no data), ``cuda()`` on a card,
+    counted in ``LAUNCHES`` once it has launched; any other device raises.
+    The call runs through `counting.kernel`, which charges ``cost()`` under
+    an op counter."""
+    if dev.type == "cpu":
+        run = plain
+    elif dev.type == "meta":
+        run = meta
+    elif dev.type == "cuda":
+        def run():
+            out = cuda()
+            count_launch(name)
+            return out
+    else:
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return counting.kernel(name, cost, run)
 
 
 def _check_cuda(name: str, tensors: dict, dtypes: dict, views: tuple = ()) -> torch.device:
-    """One device for every tensor, each of its dtype and contiguous (the
-    arguments named in ``views`` may be views; their kernel checks their
-    strides)."""
+    """One device for every tensor, each of its dtype where ``dtypes`` names
+    one, and contiguous (the arguments named in ``views`` may be views;
+    their kernel checks their strides)."""
     dev = None
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -75,7 +88,7 @@ def _check_cuda(name: str, tensors: dict, dtypes: dict, views: tuple = ()) -> to
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: {arg} on {t.device}, expected {dev}")
-        if t.dtype != dtypes[arg]:
+        if arg in dtypes and t.dtype != dtypes[arg]:
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtypes[arg]}")
         if arg not in views and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
@@ -98,24 +111,13 @@ def score_topk(q, d, *, k: int, block_d: int | None = None, merge: str = "bitoni
         raise ValueError(f"unknown merge {merge!r}; expected 'bitonic' or 'concat'")
     if block_d is None:
         block_d = tune_config.active().config.dense_block_d or 1024
-    for arg, t in (("q", q), ("d", d)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"score_topk: {arg} must be a tensor, got {type(t).__name__}")
-        if not t.is_contiguous():
-            raise ValueError(f"score_topk: {arg} must be contiguous")
-    if q.device != d.device:
-        raise ValueError(f"score_topk: d on {d.device}, expected {q.device}")
-    dev = q.device
-    if dev.type == "cpu":
-        run = lambda: _dense.score_topk_ref(q, d, k=k, block_d=block_d)  # noqa: E731
-    elif dev.type == "meta":
-        run = lambda: _dense.outputs_meta(q, k=k)  # noqa: E731
-    elif dev.type == "cuda":
-        run = lambda: _launch("score_topk", _dense.score_topk_cuda, q, d, k=k,  # noqa: E731
-                              block_d=block_d)
-    else:
-        raise ValueError(f"score_topk: no kernel for device {dev}")
-    return counting.kernel("score_topk", lambda: _dense.cost(q, d, k=k), run)
+    # each version checks the dtypes itself (meta checks none)
+    dev = _check_cuda("score_topk", {"q": q, "d": d}, {})
+    return _dispatch("score_topk", dev,
+                     lambda: _dense.score_topk_ref(q, d, k=k, block_d=block_d),
+                     lambda: _dense.outputs_meta(q, k=k),
+                     lambda: _dense.score_topk_cuda(q, d, k=k, block_d=block_d),
+                     lambda: _dense.cost(q, d, k=k))
 
 
 def lexical_scan_topk(
@@ -136,9 +138,9 @@ def lexical_scan_topk(
     unpacks it block by block, the kernel decodes each tile on the card, and
     the result is the unpacked call's, bit for bit. A launch counts under
     ``lexical_scan_topk`` either way. ``counters``: on a card, the int64
-    array of `lexical_scan.COUNTERS` the kernel adds its counts into, in
-    place of the device's own (`lexical_scan.read_counters`); the plain
-    version counts nothing.
+    array of `lexical_scan.COUNTERS` the kernel adds its counts into, the
+    only place its counts go (without it the launch counts nothing); the
+    plain version counts nothing.
     """
     if block_d is None or tile_d is None:
         cfg = tune_config.active().config
@@ -159,17 +161,11 @@ def lexical_scan_topk(
                          "[n_models, n_q, L_q], d_tokens [n_d, L_d] expected")
     args = (q_tokens, weights, ab, d_tokens, d_len)
     kw = dict(modes=modes, k=k, block_d=block_d, tile_d=tile_d, pack_spec=pack_spec)
-    if dev.type == "cpu":
-        run = lambda: _lexical.lexical_scan_topk_ref(*args, **kw)  # noqa: E731
-    elif dev.type == "meta":
-        run = lambda: _lexical.outputs_meta(q_tokens, weights, k=k)  # noqa: E731
-    elif dev.type == "cuda":
-        run = lambda: _launch("lexical_scan_topk",  # noqa: E731
-                              _lexical.lexical_scan_topk_cuda, *args, **kw, counters=counters)
-    else:
-        raise ValueError(f"lexical_scan_topk: no kernel for device {dev}")
-    return counting.kernel("lexical_scan_topk",
-                          lambda: _lexical.cost(*args, k=k, pack_spec=pack_spec), run)
+    return _dispatch("lexical_scan_topk", dev,
+                     lambda: _lexical.lexical_scan_topk_ref(*args, **kw),
+                     lambda: _lexical.outputs_meta(q_tokens, weights, k=k),
+                     lambda: _lexical.lexical_scan_topk_cuda(*args, **kw, counters=counters),
+                     lambda: _lexical.cost(*args, k=k, pack_spec=pack_spec))
 
 
 def _same_dtype(name: str, tensors: dict, views: tuple = ()) -> torch.device:
@@ -206,19 +202,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     s = q.shape[1]
     if s % block_q or s % block_k:
         raise ValueError(f"sequence {s} not divisible by block_q {block_q} / block_k {block_k}")
-    if dev.type == "cpu":
-        run = lambda: _flash.flash_attention_ref(q, k, v, causal=causal,  # noqa: E731
-                                                 window=window, cap=cap)
-    elif dev.type == "meta":
-        run = lambda: torch.empty_like(q)  # noqa: E731
-    elif dev.type == "cuda":
-        run = lambda: _launch("flash_attention", _flash.flash_attention_cuda,  # noqa: E731
-                              q, k, v, causal=causal, window=window, cap=cap,
-                              block_q=block_q, block_k=block_k)
-    else:
-        raise ValueError(f"flash_attention: no kernel for device {dev}")
-    return counting.kernel("flash_attention",
-                          lambda: _flash.cost(q, k, v, causal=causal, window=window), run)
+    return _dispatch("flash_attention", dev,
+                     lambda: _flash.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                        cap=cap),
+                     lambda: torch.empty_like(q),
+                     lambda: _flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                                         cap=cap, block_q=block_q,
+                                                         block_k=block_k),
+                     lambda: _flash.cost(q, k, v, causal=causal, window=window))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -306,33 +297,20 @@ def flash_decode(q, k_cache, v_cache, t, *, window: int | None = None,
                 or t.dtype == torch.bool:
             raise TypeError(f"flash_decode: t must be an int or one integer, got {t.dtype} "
                             f"{tuple(t.shape)}")
-        if dev.type in ("cuda", "meta") and t.device == dev:
-            if dev.type == "meta":
-                run = meta_out
-            else:
-                run = lambda: _launch(  # noqa: E731
-                    "flash_decode", _decode.flash_decode_cuda, q, k_cache, v_cache,
-                    t.reshape(()).to(torch.int32),  # no copy for an int32 t
-                    window=window, cap=cap, block_s=block_s, cache_len=total, **shard)
-            return counting.kernel(
-                "flash_decode",
-                lambda: _decode.cost(q, k_cache, v_cache, None, window=window, cache_len=total,
-                                     **shard), run)
-    t = int(t)
-    if not 0 <= t < total:
-        raise ValueError(f"flash_decode: position t={t} outside a cache of {total}")
-    if dev.type == "cpu":
-        run = lambda: _decode.flash_decode_ref(q, k_cache, v_cache, t,  # noqa: E731
-                                               window=window, cap=cap, **shard)
-    elif dev.type == "meta":
-        run = meta_out
-    elif dev.type == "cuda":
-        run = lambda: _launch(  # noqa: E731
-            "flash_decode", _decode.flash_decode_cuda, q, k_cache, v_cache,
-            torch.tensor(t, dtype=torch.int32, device=dev), window=window, cap=cap,
-            block_s=block_s, cache_len=total, **shard)
-    else:
-        raise ValueError(f"flash_decode: no kernel for device {dev}")
-    return counting.kernel("flash_decode",
-                          lambda: _decode.cost(q, k_cache, v_cache, t, window=window,
-                                               cache_len=total, **shard), run)
+    # a t beside the caches off the host is the kernel's to read (costed at the last position)
+    on_card = isinstance(t, torch.Tensor) and not t.is_cpu and t.device == dev
+    if not on_card:
+        t = int(t)
+        if not 0 <= t < total:
+            raise ValueError(f"flash_decode: position t={t} outside a cache of {total}")
+    return _dispatch(
+        "flash_decode", dev,
+        lambda: _decode.flash_decode_ref(q, k_cache, v_cache, t, window=window, cap=cap, **shard),
+        meta_out,
+        lambda: _decode.flash_decode_cuda(
+            q, k_cache, v_cache,
+            t.reshape(()).to(torch.int32) if on_card  # no copy for an int32 t
+            else torch.tensor(t, dtype=torch.int32, device=dev),
+            window=window, cap=cap, block_s=block_s, cache_len=total, **shard),
+        lambda: _decode.cost(q, k_cache, v_cache, None if on_card else t, window=window,
+                             cache_len=total, **shard))

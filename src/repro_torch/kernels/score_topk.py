@@ -33,8 +33,6 @@ versions by the tensors' device and counts launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.pipeline import next_pow2
@@ -260,28 +258,7 @@ def launch_geometry(n_q: int, dim: int, n_d: int, k: int, block_d: int, elem_siz
 
 # the C entry point's parameters, in order: p a pointer, i an int
 LAUNCH_ARGS = "pp" + "p" * 7 + "pp" + "i" * 15 + "p"
-
-
-def _c_args(spec: str) -> list:
-    return [ctypes.c_void_p if c == "p" else ctypes.c_int for c in spec]
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("score_topk")
-    if not getattr(lib, "_repro_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_topk_launch.argtypes = _c_args(LAUNCH_ARGS)
-        lib.score_topk_launch.restype = i
-        lib.score_topk_error_string.argtypes = [i]
-        lib.score_topk_error_string.restype = ctypes.c_char_p
-        lib._repro_typed = True
-    return lib
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.score_topk_error_string(rc).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+_launch = _build.Entry("score_topk", LAUNCH_ARGS)
 
 
 # the empty slot (-inf, -1) as a pack_key value: every list's first threshold
@@ -318,6 +295,14 @@ def list_states(n_lists: int, k_pad: int, n_ctas: int, per_cta: int, n_split: in
     )
 
 
+def pad_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x [n, dim]`` with its rows zero-padded to the kernel's row, a whole
+    number of ``STAGE_BYTES``; ``x`` itself, no copy, when they are whole
+    already. Zeros change no dot product and no norm."""
+    pad = -x.shape[1] % (STAGE_BYTES // x.element_size())
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
 def score_topk_cuda(q: torch.Tensor, d: torch.Tensor, *, k: int,
                     block_d: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on contiguous CUDA tensors (checked by the
@@ -325,32 +310,23 @@ def score_topk_cuda(q: torch.Tensor, d: torch.Tensor, *, k: int,
     error, and on sizes the kernel cannot take.
 
     The kernel stages rows ``STAGE_BYTES`` at a time: rows of another width
-    are zero-padded to the next multiple here (a copy of ``q`` and ``d``
-    each call), which leaves every dot product as it is."""
+    are zero-padded here (:func:`pad_rows`, a copy of ``q`` and ``d`` each
+    call), which leaves every dot product as it is."""
     _check_args(q, d, k, block_d)
-    row = STAGE_BYTES // d.element_size()
-    if q.shape[1] % row:
-        pad = (0, -q.shape[1] % row)
-        q, d = torch.nn.functional.pad(q, pad), torch.nn.functional.pad(d, pad)
+    q, d = pad_rows(q), pad_rows(d)
     n_q, dim = q.shape
     n_d = d.shape[0]
     dev = d.device
-    for name, t in (("q", q), ("d", d)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"score_topk kernel: {name} must start 16-byte aligned")
-    geo = launch_geometry(n_q, dim, n_d, k, block_d, d.element_size(),
-                          torch.cuda.get_device_properties(dev).multi_processor_count)
-    lib = _lib()
+    _build.check_aligned("score_topk kernel", q=q, d=d)
+    geo = launch_geometry(n_q, dim, n_d, k, block_d, d.element_size(), _build.sm_count(dev))
     state = list_states(n_q, geo["k_pad"], geo["n_groups"] * geo["n_splits"], geo["group"],
                         geo["n_splits"], geo["cap"], dev)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rc = lib.score_topk_launch(
-        q.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in state), out_s.data_ptr(),
+    _launch(
+        dev, q.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in state), out_s.data_ptr(),
         out_i.data_ptr(), n_q, dim, n_d, k, geo["k_pad"], geo["cap"], geo["group"],
         geo["n_qp"], geo["split_rows"], geo["n_splits"], geo["n_groups"], geo["stages"],
-        int(d.dtype == torch.bfloat16), geo["smem"], geo["merge_smem"], stream,
+        int(d.dtype == torch.bfloat16), geo["smem"], geo["merge_smem"],
     )
-    _raise_on(lib, rc, "score_topk launch")
     return out_s, out_i

@@ -39,7 +39,7 @@ from repro_torch.core import anchors, packing, pipeline, scan, topk
 from repro_torch.core.scoring import PAD_TOKEN, CollectionStats, Scorer, get_scorer
 from repro_torch.device import resolve_device
 from repro_torch.kernels import lexical_scan
-from repro_torch.kernels.score_topk import STAGE_BYTES
+from repro_torch.kernels.score_topk import pad_rows
 from repro_torch.tune import config as tune_config
 
 
@@ -365,7 +365,7 @@ class DenseSession:
     are mapped independently, so the bits are those of mapping each chunk;
     each query block is mapped per call, and the block is then scanned as a
     dot product against the mapped corpus. On a card the mapped vectors are
-    zero-padded once to the kernel's row (``STAGE_BYTES``, 32 float32), and
+    zero-padded once to the kernel's row (`score_topk.pad_rows`, 32 float32), and
     each query block to the same width, so the kernel's wrapper copies
     nothing per block; zeros change no dot product and no norm.
     """
@@ -402,10 +402,7 @@ class DenseSession:
         """Zero columns up to the kernel's row width, on a card only: the
         CPU's plain version reads rows of any width, and a wider resident
         corpus would cost its memory for nothing."""
-        if x.device.type != "cuda":
-            return x
-        width = -(-x.shape[1] * 4 // STAGE_BYTES) * STAGE_BYTES // 4
-        return torch.nn.functional.pad(x, (0, width - x.shape[1])) if width != x.shape[1] else x
+        return pad_rows(x) if x.device.type == "cuda" else x
 
     @property
     def n_docs(self) -> int:

@@ -35,8 +35,8 @@ same bytes on the card. The dense session pads its corpus once (the
 wrapper's bits, no corpus-sized allocation a block); the ragged bag and
 the reduced GNN in every regime repeat their bytes on the card, and the GNN
 holds to the CPU (float64 within 1e-5, float32 logits within 2e-4 / 2e-5).
-The lexical kernel's counters move on every launch and zero when read, and
-a traced session's block carries its own launch's counts, also when two
+The lexical kernel's counters move on every launch into the array the call
+passes, and a traced session's block carries its own launch's counts, also when two
 blocks are launched back to back behind a busy card (no host sync, each
 collected to its own bytes); its term scores,
 shared by the slots that hold a term with the same weight's bits, keep the
@@ -51,7 +51,7 @@ import torch
 
 from _torch_parity import assert_rankings_close
 from repro_torch.core import anchors, packing, scoring
-from repro_torch.kernels import flash_attn, flash_decode, lexical_scan, ops, score_topk
+from repro_torch.kernels import _build, flash_attn, flash_decode, lexical_scan, ops, score_topk
 
 GRID = [
     ("ql_lm", {}),
@@ -80,6 +80,11 @@ def _lexical_inputs(seed, n_d, l_d, n_q, l_q, vocab, n_empty):
     return q, toks, lens
 
 
+def _zero_counters(dev) -> torch.Tensor:
+    """A zeroed array for one launch's counts (`lexical_scan.COUNTERS`)."""
+    return torch.zeros(len(lexical_scan.COUNTERS), dtype=torch.int64, device=dev)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version_bitwise():
     dev = _card()
@@ -104,13 +109,13 @@ def test_cuda_kernel_matches_plain_version_bitwise():
 
 @pytest.mark.cuda
 def test_cuda_lexical_scan_counters():
-    """The kernel's counters move on every launch and zero when read: at
-    least one candidate flushed for each slot of each final list, flush
-    cycles within the loop's, a flush pass at least every fourth tile of a
-    CTA and one final pass a CTA; the outputs stay the plain version's bits."""
+    """The kernel's counters move on every launch, into the zeroed array the
+    call passes: at least one candidate flushed for each slot of each final
+    list, flush cycles within the loop's, a flush pass at least every fourth
+    tile of a CTA and one final pass a CTA; the outputs stay the plain
+    version's bits."""
     dev = _card()
     grid = [scoring.make_variant(b, **p) for b, p in GRID]
-    lexical_scan.read_counters(dev)  # what earlier launches left
     for seed, (n_d, l_d, k, block_d, tile_d) in enumerate(
         [(300, 23, 37, 100, 16), (2048, 64, 64, 256, 64), (8192, 24, 3000, 4096, 16),
          (65536, 16, 100, 65536, 32)]
@@ -119,10 +124,10 @@ def test_cuda_lexical_scan_counters():
         d, dl, qt = (torch.tensor(x, device=dev) for x in (toks, lens, q))
         stats = anchors.collection_stats(d, dl, 30, chunk_size=n_d)
         modes, w, ab = scoring.lexical_epilogues(grid, qt, stats)
+        got = _zero_counters(dev)
         ks, ki = ops.lexical_scan_topk(qt, w, ab, d, dl, modes=modes, k=k,
-                                       block_d=block_d, tile_d=tile_d)
-        got = lexical_scan.read_counters(dev)
-        assert lexical_scan.read_counters(dev) == dict.fromkeys(lexical_scan.COUNTERS, 0)
+                                       block_d=block_d, tile_d=tile_d, counters=got)
+        got = dict(zip(lexical_scan.COUNTERS, got.tolist()))
         ps, pi = lexical_scan.lexical_scan_topk_ref(qt, w, ab, d, dl, modes=modes, k=k,
                                                     block_d=block_d, tile_d=tile_d)
         assert torch.equal(ki, pi)
@@ -188,13 +193,13 @@ def _every_layout(q, toks, lens, w, ab, modes, vocab, k=40, block_d=1024, tile_d
     ws, wi = lexical_scan.lexical_scan_topk_ref(qt, w, ab, d, dl, modes=modes, k=k,
                                                 block_d=block_d, tile_d=tile_d)
     want = _term_counts(q, toks, lens, w, ab, modes)
-    lexical_scan.read_counters(dev)  # what earlier launches left
     for mode in PACKS:
         spec = None if mode is None else packing.make_spec(vocab, l_d, mode)
         tok = d if spec is None else torch.as_tensor(packing.pack_tokens(toks, spec), device=dev)
+        got = _zero_counters(dev)
         ks, ki = ops.lexical_scan_topk(qt, w, ab, tok, dl, modes=modes, k=k, block_d=block_d,
-                                       tile_d=tile_d, pack_spec=spec)
-        got = lexical_scan.read_counters(dev)
+                                       tile_d=tile_d, pack_spec=spec, counters=got)
+        got = dict(zip(lexical_scan.COUNTERS, got.tolist()))
         assert torch.equal(ki, wi), mode
         assert torch.equal(ks.view(torch.int32), ws.view(torch.int32)), mode
         assert (got["term_scores"], got["term_uses"]) == want, (mode, got, want)
@@ -273,7 +278,7 @@ def test_cuda_kernel_with_no_shared_term_scores_each_slot():
 @pytest.mark.cuda
 def test_cuda_traced_lexical_session_carries_its_blocks_counts():
     """A traced block's ``session.search`` span carries its own launch's
-    counts, not what an untraced block before it left in the array."""
+    counts (an untraced block before it counts nowhere)."""
     from repro_torch import obs
     from repro_torch.serve.session import LexicalSession
 
@@ -604,7 +609,7 @@ def test_cuda_flash_decode_device_t_matches_plain_version():
     reference's tolerances."""
     dev = _card()
     b, s, kv, g, hd = 2, 1100, 4, 2, 256
-    block, _ = flash_decode.split_plan(s, None, b * kv, flash_decode.sm_count(dev), 512)
+    block, _ = flash_decode.split_plan(s, None, b * kv, _build.sm_count(dev), 512)
     for n, dtype in enumerate((torch.float32, torch.bfloat16)):
         q = _rows(200 + n, (b, kv * g, hd), dtype, dev)
         kc, vc = _rows(210 + n, (b, s, kv, hd), dtype, dev), _rows(220 + n, (b, s, kv, hd), dtype, dev)

@@ -188,7 +188,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 def test_the_counters_name_each_of_the_kernels_counts():
     """`COUNTERS` has a name for each uint64 the kernel adds to (its
-    ``kCounters``), and a device the kernel never ran on reads all zero."""
+    ``kCounters``)."""
     import re
 
     from repro_torch.kernels import _build
@@ -196,7 +196,6 @@ def test_the_counters_name_each_of_the_kernels_counts():
     src = (_build.CSRC / "lexical_scan.cu").read_text()
     assert int(re.search(r"constexpr int kCounters = (\d+);", src).group(1)) == len(
         lexical_scan.COUNTERS) == len(set(lexical_scan.COUNTERS))
-    assert lexical_scan.read_counters("cpu") == dict.fromkeys(lexical_scan.COUNTERS, 0)
 
 
 def test_the_counters_keep_their_first_eight_in_order():

@@ -277,17 +277,58 @@ def test_library_name_hashes_each_sources_flags(tmp_path, monkeypatch):
 
 
 
-@pytest.mark.parametrize("name", ["score_topk", "lexical_scan"])
+@pytest.mark.parametrize("name", ["score_topk", "lexical_scan", "flash_attn", "flash_decode"])
 def test_launch_signature_matches_source(name):
-    """The ctypes parameter list of each scan kernel's C entry point is the
-    one its source declares (a pointer for each ``void*``, an int for each
-    ``int``): ctypes cannot check it, and a short list fails only on the card."""
+    """The ctypes parameter list of each kernel's C entry point is the one
+    its source declares (a pointer for each ``void*``, a float for each
+    ``float``, an int for each ``int``): ctypes cannot check it, and a short
+    list fails only on the card."""
+    import importlib
     import re
-
-    from repro_torch.kernels import lexical_scan
 
     src = (_build.CSRC / f"{name}.cu").read_text()
     params = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src).group(1)
-    kinds = "".join("p" if "*" in p else "i" for p in params.split(","))
-    module = score_topk if name == "score_topk" else lexical_scan
+    kinds = "".join("p" if "*" in p else "f" if "float" in p else "i" for p in params.split(","))
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
     assert kinds == module.LAUNCH_ARGS
+    assert (module._launch.name, module._launch.spec) == (name, module.LAUNCH_ARGS)
+
+
+def test_build_entry_types_calls_and_raises(monkeypatch):
+    """`_build.Entry` types the entry point from its spec and its error
+    string, passes the device's current stream after the arguments, and
+    raises with the kernel's own error string on a nonzero return."""
+    import ctypes
+    from types import SimpleNamespace
+
+    class Fn:
+        def __init__(self, result):
+            self.result, self.calls = result, []
+
+        def __call__(self, *args):
+            self.calls.append(args)
+            return self.result(*args)
+
+    rc = [0]
+    lib = SimpleNamespace(k_launch=Fn(lambda *a: rc[0]),
+                          k_error_string=Fn(lambda code: b"an illegal address"))
+    loads = []
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or lib)
+    streams = []
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: streams.append(dev) or SimpleNamespace(cuda_stream=0xBEEF))
+    entry = _build.Entry("k", "pifp")
+    entry("cuda:1", 16, 3, 0.5)
+    assert loads == ["k"] and streams == ["cuda:1"]
+    assert lib.k_launch.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p]
+    assert lib.k_launch.restype is ctypes.c_int
+    assert lib.k_error_string.argtypes == [ctypes.c_int]
+    assert lib.k_error_string.restype is ctypes.c_char_p
+    assert lib.k_launch.calls == [(16, 3, 0.5, 0xBEEF)]
+    rc[0] = 700
+    with pytest.raises(RuntimeError, match=r"^k launch failed: CUDA error 700 "
+                                           r"\(an illegal address\)$"):
+        entry("cuda:1", 16, 3, 0.5)
+    assert lib.k_error_string.calls == [(700,)]
+    assert loads == ["k"]  # loaded and typed once
