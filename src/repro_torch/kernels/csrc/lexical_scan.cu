@@ -428,6 +428,11 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
     const unsigned char* tile = ring + (t & 1) * buf_bytes + misalign(g0);
     for (int r = warp; r < nt; r += kWarps) {
       const unsigned char* row = tile + r * row_bytes;
+      const int gid = d0 + r;
+      // the row's length, from global memory: asked for now, so that the
+      // load is in flight while the row is counted and not waited for when
+      // the epilogue starts
+      const int dlen = __ldg(lens + gid);
       // count: each token once against the query terms; only positions
       // below the row's unpacked length (bit-planes pad their last group
       // with zeros, and 0 is a real term)
@@ -441,8 +446,6 @@ lexical_scan_kernel(const int* __restrict__ q_safe,     // [n_q, l_q]
       }
       __syncwarp();
       if (tid == 0) tally[kTallyEpi] -= clock64();  // the row's epilogue: its end less its start
-      const int gid = d0 + r;
-      const int dlen = __ldg(lens + gid);
       const float dlf = fmaxf(static_cast<float>(dlen), 1.0f);
       const float log_dlf = logf(dlf), sqrt_dlf = sqrtf(dlf);
       const int nm = n_match[warp];

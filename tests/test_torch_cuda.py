@@ -276,6 +276,38 @@ def test_cuda_kernel_with_no_shared_term_scores_each_slot():
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_keeps_its_bits_on_signed_infinite_and_long_queries():
+    """Weights and norms at the edges of the epilogue's zero path, in one
+    launch beside ordinary lists: PAD-padded queries of mixed lengths (their
+    pads weigh +0), a list with a negative weight, one with a -0 weight, one
+    with an infinite weight (its term is in every non-empty row, so no score
+    is NaN), a bm25 model whose norm is not positive on short rows; then a
+    block of queries of 33 terms. Every layout keeps the plain version's
+    bits and the term counters `_term_counts` predicts."""
+    grid = [scoring.make_variant(b, **p) for b, p in GRID]
+    vocab = 153  # 150 drawn, then three terms of one query each
+    q, toks, lens = _lexical_inputs(964, 4096, 40, 48, 8, 150, 128)
+    rows = np.arange(len(toks))
+    toks[:, 0] = np.where(lens > 0, 152, toks[:, 0])
+    toks[:, 1] = np.where((lens > 1) & (rows % 2 == 0), 150, toks[:, 1])
+    toks[:, 2] = np.where((lens > 2) & (rows % 3 == 0), 151, toks[:, 2])
+    q[3, 0], q[4, 1], q[5, 0] = 150, 151, 152
+    stats = anchors.collection_stats(torch.tensor(toks), torch.tensor(lens), vocab,
+                                     chunk_size=4096)
+    modes, w, ab = scoring.lexical_epilogues(grid, torch.tensor(q), stats)
+    w = w.clone()
+    w[:, 3, 0], w[:, 4, 1], w[:, 5, 0] = -0.25, -0.0, float("inf")
+    ab = ab.clone()
+    ab[3] = torch.tensor([-0.3, 1.0 / 64])  # never 0 nor -tf: -0.3 is no multiple of 1/64
+    got = _every_layout(q, toks, lens, w, ab, modes, vocab)
+    assert got["term_uses"] > got["term_scores"] > 0, got
+    q33 = _lexical_inputs(965, 1, 1, 12, 33, 150, 0)[0]
+    modes, w, ab = scoring.lexical_epilogues(grid, torch.tensor(q33), stats)
+    got = _every_layout(q33, toks, lens, w, ab, modes, vocab)
+    assert got["term_uses"] >= got["term_scores"] > 0, got
+
+
+@pytest.mark.cuda
 def test_cuda_traced_lexical_session_carries_its_blocks_counts():
     """A traced block's ``session.search`` span carries its own launch's
     counts (an untraced block before it counts nowhere)."""

@@ -228,6 +228,16 @@ def test_the_term_table_keeps_one_query_group(shape, most_groups):
         assert geo["smem"] <= lexical_scan.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("n_q", [64, 32])
+def test_a_serving_block_keeps_one_query_group_and_its_tile(n_q):
+    """A served block of the cells' shape (one model, 64 or 32 queries of 8
+    terms, rows of 128 tokens, tile_d 16) stays one query group of 32-row
+    tiles: the collection is scanned once a block."""
+    geo = lexical_scan.launch_geometry(1, n_q, 8, 12_582_912, 128, 1000, 16_384, 16)
+    assert geo["n_groups"] == 1 and geo["group"] == n_q and geo["tile_docs"] == 32
+    assert geo["smem"] <= lexical_scan.SMEM_LIMIT
+
+
 def test_wrapper_checks_its_arguments():
     q = torch.zeros((2, 3), dtype=torch.int32)
     w = torch.zeros((1, 2, 3))
